@@ -1,15 +1,21 @@
-"""Drive the PyTorch port's image path on one CUDA card and check it.
+"""Drive the PyTorch port's image path and its LM serving path on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the main path's shapes
-(with timings and the card's bound), then runs the port's image loader at
-ImageNet training geometry (256x256 RGB frames, batch 128, random 224x224
-crops and flips decoded on the card) and checks every delivered batch
-against the same loader run on the CPU.  Each phase prints one JSON line.
-The last three lines are the kernel summary, the card's name and power
-limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
+holds each against its plain PyTorch version at the main paths' shapes
+(with timings and the card's bound), then runs
+  - the port's image loader at ImageNet training geometry (256x256 RGB
+    frames, batch 128, random 224x224 crops and flips decoded on the card)
+    and checks every delivered batch against the same loader run on the CPU;
+  - Qwen3-0.6B at full width, cut to 2 layers, on the card against the
+    same model and weights on the CPU (prefill, then 4 decode steps);
+  - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
+    seed-initialized weights), prefill attention in ``flash_attention``.
+Each phase prints one JSON line.  The last three lines are the kernel
+summary, the card's name and power limit as ``nvidia-smi`` gives them, and
+``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, when torch sees no CUDA card or when
 any phase fails.
@@ -17,7 +23,9 @@ any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -35,11 +43,18 @@ MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 BATCH, FRAME, CROP = 128, (256, 256), (224, 224)
 FRAMES = 1536  # 12 batches an epoch; 2 epochs cycle the 10-slab ring twice over
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+# Peaks of the H100 SXM part (NVIDIA's data sheet, dense, at 700 W); every
+# bound row carries the nvidia-smi name of the card it ran on beside them.
+PEAKS_FOR = "H100 SXM"
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # bf16 on the tensor cores
 OPS_PER_ELEMENT = 3  # x*scale, -mean_c, *(1/std_c)
 BF16_BAR, F32_BAR = "1 bf16 ulp", 2e-5
 TIMED_RUNS = 30
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TOL, atol and rtol
+MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
 
 
 def emit(obj: dict) -> None:
@@ -94,12 +109,16 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def bound(n_read: int, in_size: int, n_out: int, out_size: int, extra_bytes: int) -> dict:
-    nbytes = n_read * in_size + n_out * out_size + extra_bytes
-    ops = n_out * OPS_PER_ELEMENT
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes: int, ops: int, ops_per_s: float, card: str) -> dict:
+    """The least time for ``nbytes`` of memory traffic and ``ops`` operations
+    at the published peaks of ``PEAKS_FOR``, with the card it ran on."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops, "peaks_for": PEAKS_FOR, "card": card}
+
+
+def dequant_bound(n_read: int, in_size: int, n_out: int, out_size: int, extra_bytes: int, card: str) -> dict:
+    return bound(n_read * in_size + n_out * out_size + extra_bytes, n_out * OPS_PER_ELEMENT, F32_OPS_PER_S, card)
 
 
 def phase_device() -> str:
@@ -117,11 +136,12 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
 
     seconds, log = _build.build_all()
-    ptxas = [ln.strip() for ln in log.splitlines() if ("ptxas info" in ln and "Used" in ln) or "spill" in ln]
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "entry function" in ln or ("ptxas info" in ln and "Used" in ln) or "spill" in ln]
     emit({"phase": "build", "seconds": seconds, "dir": str(_build.BUILD_DIR.relative_to(ROOT)), "ptxas": ptxas})
 
 
-def phase_kernels(dev: torch.device, summary: dict) -> None:
+def phase_kernels(dev: torch.device, summary: dict, card: str) -> None:
     from repro_torch.kernels import dequant_normalize as dn
 
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -166,8 +186,8 @@ def phase_kernels(dev: torch.device, summary: dict) -> None:
                 x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype), flush)
             row["plain_ms"] = time_ms(lambda: dn.dequant_normalize_augment_plain(
                 x, mean, std, dflip, dcrop, out_hw=(oh, ow), out_dtype=out_dtype), flush)
-            row.update(bound(n * oh * ow * c, x.element_size(), n * c * oh * ow, got.element_size(),
-                             params.numel() * 4 + 2 * c * 4))
+            row.update(dequant_bound(n * oh * ow * c, x.element_size(), n * c * oh * ow, got.element_size(),
+                                     params.numel() * 4 + 2 * c * 4, card))
             summary["dequant_normalize_augment"].update(
                 {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
         emit(row)
@@ -183,7 +203,7 @@ def phase_kernels(dev: torch.device, summary: dict) -> None:
         raise AssertionError(f"dequant_normalize: {row['over_bar']} elements over the bar")
     row["ms"] = time_ms(lambda: dn.dequant_normalize(x, mean, std), flush)
     row["plain_ms"] = time_ms(lambda: dn.dequant_normalize_plain(x, mean, std), flush)
-    row.update(bound(x.numel(), 1, x.numel(), 2, 2 * 3 * 4))
+    row.update(dequant_bound(x.numel(), 1, x.numel(), 2, 2 * 3 * 4, card))
     summary["dequant_normalize"].update(
         {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
     emit(row)
@@ -275,6 +295,209 @@ def phase_example(ds, dev: torch.device, summary: dict) -> None:
         summary["dequant_normalize"]["max_abs_err"], worst["max_abs_err"])
 
 
+def within_tol(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """|got - want| against ``FA_TOL`` as atol and rtol, and bf16 ulps apart."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("non-finite output")
+    tol = FA_TOL[got.dtype]
+    err = (got.float() - want.float()).abs()
+    row = {"max_abs_err": float(err.max()), "bar": f"atol=rtol={tol}",
+           "over_bar": int((err > tol + tol * want.float().abs()).sum())}
+    if got.dtype == torch.bfloat16:
+        row["max_bf16_ulps"] = int(bf16_ulp_steps(got, want).max())
+    return row
+
+
+def causal_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the mask admits for one (batch, head): row i of q
+    sees keys 0 .. i + skv - sq."""
+    if not causal:
+        return sq * skv
+    return sq * (skv - sq + 1) + sq * (sq - 1) // 2
+
+
+def library_attention(q, k, v, causal: bool):
+    """One PyTorch call for the same function (the yardstick; never on the
+    port's path).  SDPA's causal mask is top-left aligned, so it is timed
+    only where sq == skv."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
+    """K3 against its plain version on the card; times at the serving shape."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    cases = [  # name, b, h, hkv, sq, skv, hd, dtype, causal
+        ("main", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, torch.bfloat16, True),
+        ("f32", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, torch.float32, True),
+        ("noncausal", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, torch.bfloat16, False),
+        ("right_aligned", 8, 16, 8, 128, SERVE_PROMPT, 128, torch.bfloat16, True),
+        ("mha_hd64", 4, 8, 8, 256, 256, 64, torch.bfloat16, True),
+    ]
+    entry = summary["flash_attention"]
+    for name, b, h, hkv, sq, skv, hd, dtype, causal in cases:
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                   for shape in ((b, h, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd)))
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        sync(dev)
+        row = {"phase": "kernels", "kernel": "flash_attention", "case": name, "q": [b, h, sq, hd],
+               "kv": [b, hkv, skv, hd], "dtype": str(dtype), "causal": causal, **within_tol(got, want)}
+        entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+        if row["over_bar"]:
+            emit(row)
+            raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
+        if name == "main":
+            row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), flush)
+            row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), flush)
+            row["library_ms"] = time_ms(library_attention(q, k, v, causal), flush)
+            row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+            row.update(bound(nbytes, 4 * hd * causal_pairs(sq, skv, causal) * b * h, BF16_TC_OPS_PER_S, card))
+            entry.update({key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        emit(row)
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _tree(out.append, tree)
+    return out
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    got, want = got.float().cpu(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_model_check(dev: torch.device) -> None:
+    """Qwen3-0.6B at full width, 2 layers (the CPU run's sake), bf16: the
+    port on the card against the same model and weights on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=2)
+    model = Model(cfg)
+    b, s, steps = 2, 256, 4
+    rng = torch.Generator(device="cpu").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=rng)
+    forced = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=rng)
+    worst: dict[str, float] = {}
+
+    def note(what, got, want):
+        worst[what] = max(worst.get(what, 0.0), _rel_err(got, want, what))
+
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        params = model.init(seed=0, device=dev)
+        host_params = _tree(lambda t: t.cpu(), params)
+        logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, seq_cap=s + steps)
+        want_logits, want_cache = model.prefill(host_params, {"tokens": tokens}, seq_cap=s + steps)
+        note("prefill_logits", logits, want_logits)
+        for name in ("k", "v"):
+            note(f"prefill_cache_{name}", cache[0]["blocks"][0][name], want_cache[0]["blocks"][0][name])
+        for t in range(steps):
+            logits, cache = model.decode_step(params, cache, forced[t].to(dev), s + t)
+            want_logits, want_cache = model.decode_step(host_params, want_cache, forced[t], s + t)
+            note("decode_logits", logits, want_logits)
+        for name in ("k", "v"):
+            note(f"final_cache_{name}", cache[0]["blocks"][0][name], want_cache[0]["blocks"][0][name])
+    emit({"phase": "model_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype,
+          "max_rel_err_vs_cpu": worst, "bar": f"max |card - cpu| <= {MODEL_REL} * max |cpu|",
+          "seconds": time.monotonic() - t0})
+    over = {k: v for k, v in worst.items() if v > MODEL_REL}
+    if over:
+        raise AssertionError(f"model_check over the bar: {over}")
+
+
+def serve_prompts(n: int) -> list[str]:
+    """n seeded prompts of 400-700 printable ASCII bytes."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    out = []
+    for _ in range(n):
+        size = int(torch.randint(400, 701, (1,), generator=gen))
+        out.append(bytes(torch.randint(32, 127, (size,), generator=gen).tolist()).decode())
+    return out
+
+
+def phase_serve(dev: torch.device, summary: dict) -> None:
+    """The serving path at full width and depth: ``BatchServer`` on
+    Qwen3-0.6B, seed-initialized on the card, two prefill batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchServer
+
+    cfg = get_config("qwen3-0.6b")
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                         max_new=SERVE_NEW, device=dev)
+    times: dict[str, list[float]] = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kwargs)
+            sync(dev)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+        return run
+
+    server.prefill = timed(server.prefill, "prefill")
+    server.decode = timed(server.decode, "decode")
+    prompts = serve_prompts(SERVE_PROMPTS)
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    results = server.generate(prompts)
+    wall = time.monotonic() - t0
+    launches = fa.flash_attention.launches
+    batches = -(-SERVE_PROMPTS // SERVE_BATCH)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    cache_bytes = sum(
+        math.prod(shape) * dt.itemsize
+        for seg in model.cache_spec(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+        for blk in seg["blocks"] for shape, dt in blk.values()
+    )
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "params": model.param_count(), "dtype": cfg.dtype, "batch": SERVE_BATCH,
+          "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW, "prompts": len(prompts),
+          "prompt_bytes": [min(map(len, prompts)), max(map(len, prompts))], "prefill_batches": batches,
+          "k3_launches": launches, "results": len(results),
+          "tokens_per_result": sorted({len(r.token_ids) for r in results}), "all_logits_finite": all(finite),
+          "reading": "the timings and bytes below are readings, not gates",
+          "prefill_ms_per_batch": times["prefill"], "decode_ms_per_token": statistics.median(times["decode"]),
+          "generated_tokens_per_s": sum(len(r.token_ids) for r in results) / wall, "wall_s": wall,
+          "param_bytes": param_bytes, "kv_cache_bytes": cache_bytes})
+    if launches != cfg.num_layers * batches:
+        raise AssertionError(f"K3 launched {launches} times for {batches} prefill batches of {cfg.num_layers} layers")
+    if len(results) != len(prompts) or any(len(r.token_ids) != SERVE_NEW for r in results):
+        raise AssertionError("a request did not get its tokens")
+    if not all(finite):
+        raise AssertionError("non-finite logits")
+    summary["flash_attention"]["launches"] = launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
@@ -296,17 +519,25 @@ def main() -> int:
             ("dequant_normalize", 44, "dequant and normalize"),
         )
     }
+    summary["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:88", "launches": 0, "max_abs_err": 0.0,
+        "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+    }
     try:
         dev = torch.device("cuda", 0)
         smi = phase_device()
         phase_build()
-        phase_kernels(dev, summary)
+        phase_kernels(dev, summary, smi)
+        phase_flash(dev, summary, smi)
+        phase_model_check(dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
             emit({"phase": "dataset", "frames": FRAMES, "hw": list(FRAME), "seconds": time.monotonic() - t0})
             phase_main(ds, dev, summary)
             phase_example(ds, dev, summary)
+        phase_serve(dev, summary)
     except Exception:
         traceback.print_exc()
         return 1

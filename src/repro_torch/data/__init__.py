@@ -3,6 +3,7 @@ from .codec import decode_sample, encode_sample
 from .dataset import ArrayDataset, SyntheticImageDataset, SyntheticTokenDataset
 from .loader import build_image_loader
 from .sampler import CheckpointableSampler
+from .tokenizer import ByteTokenizer
 from .transfer import DeviceDecode, DeviceTransfer, to_uint8_wire
 
 __all__ = [
@@ -15,6 +16,7 @@ __all__ = [
     "SyntheticImageDataset",
     "SyntheticTokenDataset",
     "CheckpointableSampler",
+    "ByteTokenizer",
     "build_image_loader",
     "DeviceDecode",
     "DeviceTransfer",

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..core import trace as _trace
+from ..device import resolve_device
 from .arena import SLAB_KEY
 
 #: absolute slack allowed past [0, 1] before a float wire payload is
@@ -121,16 +122,9 @@ class DeviceTransfer:
         device_decode: DeviceDecode | None = None,
         tracer=None,
     ):
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = resolve_device(device, "DeviceTransfer")
         if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"DeviceTransfer: {self.device} requested but torch sees no "
-                    "CUDA device; pass device='cpu' to run on the host"
-                )
             self._copy_stream = torch.cuda.Stream(self.device)
-        elif self.device.type != "cpu":
-            raise ValueError(f"DeviceTransfer: unsupported device {self.device}")
         if hold_slabs is None:
             # consumer window + the batch mid-handoff + every batch of the
             # current dispatch chunk still un-put in the worker (chunked

@@ -10,5 +10,6 @@ kernel or raises.  There is no flag, no interpret mode and no fallback.
 from __future__ import annotations
 
 from .dequant_normalize import dequant_normalize, dequant_normalize_augment
+from .flash_attention import flash_attention
 
-__all__ = ["dequant_normalize", "dequant_normalize_augment"]
+__all__ = ["dequant_normalize", "dequant_normalize_augment", "flash_attention"]

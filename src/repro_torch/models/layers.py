@@ -1,0 +1,155 @@
+"""Shared neural layers: norms, FFN, RoPE, embeddings and the head.
+
+Activations stay in the model's dtype (bf16 at full size) with f32
+reductions in the norms and RoPE, as in the reference.  Parameters are
+declared as ``ParamDef`` trees; apply functions are plain functions of
+tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .params import ParamDef
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def norm_defs(cfg: ModelConfig) -> dict:
+    if cfg.norm == "nonparam_ln":  # OLMo: no learnable affine
+        return {}
+    if cfg.norm == "layernorm":
+        return {
+            "scale": ParamDef((cfg.d_model,), (None,), torch.float32, "ones"),
+            "bias": ParamDef((cfg.d_model,), (None,), torch.float32, "zeros"),
+        }
+    return {"scale": ParamDef((cfg.d_model,), (None,), torch.float32, "ones")}
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm in ("layernorm", "nonparam_ln"):
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        if cfg.norm == "layernorm":
+            y = y * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+        y = y * p["scale"]
+    return y.to(x.dtype)
+
+
+def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense FFN
+# ---------------------------------------------------------------------------
+
+
+def ffn_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, dtype_of(cfg)
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": ParamDef((d, f), ("embed", "ffn"), dt),
+            "w_up": ParamDef((d, f), ("embed", "ffn"), dt),
+            "w_down": ParamDef((f, d), ("ffn", "embed"), dt),
+        }
+    return {
+        "w_up": ParamDef((d, f), ("embed", "ffn"), dt),
+        "w_down": ParamDef((f, d), ("ffn", "embed"), dt),
+    }
+
+
+def apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  The two
+    rotated halves are split, not interleaved pairs; computed in f32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+
+def embed_defs(cfg: ModelConfig) -> dict:
+    return {
+        "tok": ParamDef(
+            (cfg.n_codebooks, cfg.padded_vocab, cfg.d_model),
+            (None, "vocab_in", "embed"),
+            dtype_of(cfg),
+            "embed_normal",
+        )
+    }
+
+
+def apply_embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, S) integer ids (or (B, S, 1)) → (B, S, D)."""
+    if tokens.dim() == 3:
+        tokens = tokens[..., 0]
+    return p["tok"][0][tokens]
+
+
+def head_defs(cfg: ModelConfig) -> dict:
+    if cfg.tie_embeddings:
+        return {}
+    return {
+        "w": ParamDef(
+            (cfg.d_model, cfg.n_codebooks * cfg.padded_vocab),
+            ("embed", "vocab"),
+            dtype_of(cfg),
+        )
+    }
+
+
+def apply_head(cfg: ModelConfig, head_p: dict, embed_p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Returns logits (B, S, n_codebooks*padded_vocab).  Padded columns must
+    be masked by the caller (``mask_padded_vocab``)."""
+    if cfg.tie_embeddings:
+        w = embed_p["tok"].reshape(cfg.n_codebooks * cfg.padded_vocab, cfg.d_model).T
+        return x @ w
+    return x @ head_p["w"]
+
+
+def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """logits (..., padded_vocab): the padding columns take the finite
+    -2**30 so they never win the softmax or the argmax."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab_size
+    return torch.where(ok, logits, torch.tensor(-(2.0**30), dtype=logits.dtype, device=logits.device))
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32

@@ -1,0 +1,118 @@
+"""Model: the end-to-end LM API that the server calls.
+
+- ``prefill(params, batch, seq_cap)``        → (last-position logits, cache)
+- ``decode_step(params, cache, tokens, pos)`` → (logits, cache updated in place)
+- ``cache_spec(batch, seq_cap)`` → the cache's shapes and dtypes;
+  ``new_cache(batch, seq_cap, device)`` allocates it.
+
+Dense GQA decoders.  MoE, MLA, SSD, the multi-codebook audio head, the
+vision prefix, MTP and ``train_loss`` come with later slices (ROADMAP §1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import transformer as tf
+from .layers import (
+    apply_embed,
+    apply_head,
+    apply_norm,
+    dtype_of,
+    embed_defs,
+    head_defs,
+    mask_padded_vocab,
+    norm_defs,
+)
+from .params import init_params, param_count
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.n_codebooks > 1 or cfg.vis_prefix_len or cfg.mtp:
+            raise NotImplementedError(
+                f"{cfg.name}: multi-codebook heads, vision prefixes and MTP are not "
+                "ported yet (ROADMAP §1)"
+            )
+        for kind, is_moe in cfg.layer_plan():
+            tf.check_supported(kind, is_moe)
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embed": embed_defs(cfg),
+            "segments": tf.segment_defs(cfg),
+            "final_norm": norm_defs(cfg),
+            "head": head_defs(cfg),
+        }
+
+    def init(self, seed: int, device: torch.device | str | None = None) -> dict:
+        """Parameters drawn from ``seed`` on ``device`` (``None`` = the card)."""
+        return init_params(self.param_defs(), seed, device)
+
+    def param_count(self) -> int:
+        return param_count(self.param_defs())
+
+    # ------------------------------------------------------------------
+    # cache
+    # ------------------------------------------------------------------
+    def cache_spec(self, batch: int, seq_cap: int) -> list:
+        """Shapes and dtypes of the cache, in the prefill cache's structure:
+        per segment ``{"blocks": [{"k": (shape, dtype), "v": ...}]}`` with
+        k/v (n_repeat, B, seq_cap, kv_heads, head_dim)."""
+        cfg = self.cfg
+        shape = (batch, seq_cap, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return [
+            {"blocks": [{name: ((n_repeat, *shape), dtype_of(cfg)) for name in ("k", "v")}
+                        for _ in plan]}
+            for plan, n_repeat in cfg.segments()
+        ]
+
+    def new_cache(self, batch: int, seq_cap: int, device: torch.device | str) -> list:
+        """A zeroed cache of capacity ``seq_cap`` on ``device``."""
+        return [
+            {"blocks": [{name: torch.zeros(shape, dtype=dt, device=device)
+                         for name, (shape, dt) in blk.items()} for blk in seg["blocks"]]}
+            for seg in self.cache_spec(batch, seq_cap)
+        ]
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+    def prefill(self, params: dict, batch: dict, seq_cap: int | None = None) -> tuple[torch.Tensor, list]:
+        """batch["tokens"] (B, S) → (logits (B, padded_vocab), cache).
+
+        The cache has capacity ``seq_cap`` (default S) and holds the prompt's
+        k/v in slots 0..S-1; decode steps write the slots after them."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = apply_embed(cfg, params["embed"], tokens)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        caches = self.new_cache(b, s if seq_cap is None else seq_cap, x.device)
+        for seg_params, seg_cache, segment in zip(params["segments"], caches, cfg.segments()):
+            x = tf.segment_prefill(cfg, segment, seg_params, seg_cache, x, positions)
+        h = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
+        logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
+        return self._shape_logits(logits), caches
+
+    def decode_step(
+        self, params: dict, caches: list, tokens: torch.Tensor, pos: int
+    ) -> tuple[torch.Tensor, list]:
+        """tokens (B, 1) at position ``pos``, the cache slot it writes."""
+        cfg = self.cfg
+        x = apply_embed(cfg, params["embed"], tokens)
+        for seg_params, seg_cache, segment in zip(params["segments"], caches, cfg.segments()):
+            x = tf.segment_decode(cfg, segment, seg_params, seg_cache, x, pos)
+        h = apply_norm(cfg, params["final_norm"], x)
+        logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
+        return self._shape_logits(logits), caches
+
+    def _shape_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        return mask_padded_vocab(self.cfg, logits)
+

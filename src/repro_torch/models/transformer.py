@@ -1,0 +1,120 @@
+"""Block assembly: (attention + FFN) layers, grouped into stacked segments.
+
+``cfg.segments()`` splits the layer stack into repetitions of identical
+super-blocks.  Parameters of a segment are stacked (leading "layers" dim),
+as in the reference, and a segment is applied by a Python loop over that
+dim, indexing views of the stacked weights and caches (the reference's
+``lax.scan``).  Serving only: the training apply waits for the training
+slice, and Mamba2 (``ssd``), MLA and MoE blocks for theirs (ROADMAP §1).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..configs.base import ModelConfig
+from . import attention
+from .layers import apply_ffn, apply_norm, ffn_defs, norm_defs
+from .params import ParamDef, tree_map_defs
+
+_NOT_PORTED = {
+    "mla": "MLA attention waits for the DeepSeek slice (ROADMAP §1, MoE and MLA)",
+    "ssd": "Mamba2 SSD blocks wait for the Mamba2-780m slice with ssd_scan (ROADMAP §1)",
+    "moe": "MoE FFNs wait for the MoE and MLA slice (ROADMAP §1)",
+}
+
+
+def check_supported(kind: str, is_moe: bool) -> None:
+    if kind != "attn":
+        raise NotImplementedError(_NOT_PORTED.get(kind, f"unknown block kind {kind!r}"))
+    if is_moe:
+        raise NotImplementedError(_NOT_PORTED["moe"])
+
+
+# ---------------------------------------------------------------------------
+# per-layer defs / apply
+# ---------------------------------------------------------------------------
+
+
+def block_defs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
+    d: dict[str, Any] = {"norm1": norm_defs(cfg), "mixer": attention.attn_defs(cfg)}
+    if cfg.d_ff > 0:
+        d["norm2"] = norm_defs(cfg)
+        d["ffn"] = ffn_defs(cfg)
+    return d
+
+
+def _ffn_residual(cfg: ModelConfig, p: dict, x):
+    if "ffn" in p:
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + apply_ffn(cfg, p["ffn"], h).to(x.dtype)
+    return x
+
+
+def block_apply_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attention.attn_prefill(cfg, p["mixer"], h, positions, cache).to(x.dtype)
+    return _ffn_residual(cfg, p, x)
+
+
+def block_apply_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int):
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + attention.attn_decode(cfg, p["mixer"], h, cache, pos).to(x.dtype)
+    return _ffn_residual(cfg, p, x)
+
+
+# ---------------------------------------------------------------------------
+# segments
+# ---------------------------------------------------------------------------
+
+
+def stack_defs(tree: Any, n: int) -> Any:
+    """Prepend a stacked "layers" dim of size n to every ParamDef."""
+    return tree_map_defs(
+        lambda d: ParamDef(
+            (n, *d.shape),
+            ("layers", *d.axes),
+            d.dtype,
+            d.init,
+            tuple(i + 1 for i in d.fan_in_dims) if d.fan_in_dims else (),
+        ),
+        tree,
+    )
+
+
+def segment_defs(cfg: ModelConfig) -> list[dict]:
+    segs = []
+    for plan, n_repeat in cfg.segments():
+        blocks = [block_defs(cfg, kind, is_moe) for kind, is_moe in plan]
+        segs.append({"blocks": [stack_defs(b, n_repeat) for b in blocks]})
+    return segs
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer i of a stacked tree: views, no copies."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, positions):
+    """``segment`` is one ``(super_block_plan, n_repeat)`` of ``cfg.segments()``."""
+    plan, n_repeat = segment
+    for layer in range(n_repeat):
+        for i in range(len(plan)):
+            x = block_apply_prefill(
+                cfg, _layer(seg_params["blocks"][i], layer), x, positions,
+                _layer(seg_cache["blocks"][i], layer),
+            )
+    return x
+
+
+def segment_decode(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, pos: int):
+    plan, n_repeat = segment
+    for layer in range(n_repeat):
+        for i in range(len(plan)):
+            x = block_apply_decode(
+                cfg, _layer(seg_params["blocks"][i], layer), x,
+                _layer(seg_cache["blocks"][i], layer), pos,
+            )
+    return x

@@ -1,0 +1,105 @@
+"""Batched serving runtime: SPDL request pipeline → prefill → decode loop.
+
+Requests stream through an SPDL pipeline (tokenize and pad run on the
+worker pool, as training-side loading does); the server runs a prefill on
+each full batch, prefill attention in the hand-written ``flash_attention``
+kernel, then greedy decode steps against the batch's KV cache, which is
+allocated once at ``prompt_len + max_new`` and written in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..core import PipelineBuilder
+from ..data.tokenizer import ByteTokenizer
+from ..launch.steps import build_decode_step, build_prefill_step
+from ..device import resolve_device
+
+
+@dataclasses.dataclass
+class ServeResult:
+    prompt: str
+    token_ids: list[int]
+    text: bytes
+
+
+class BatchServer:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        *,
+        batch_size: int = 4,
+        prompt_len: int = 32,
+        max_new: int = 16,
+        device: torch.device | str | None = None,  # None = torch.device("cuda")
+    ):
+        self.device = resolve_device(device, "BatchServer")
+        self.cfg = cfg
+        self.params = params
+        self.batch_size = batch_size
+        self.prompt_len = prompt_len
+        self.max_new = max_new
+        shape = ShapeConfig("serve", prompt_len, batch_size, "prefill")
+        dshape = ShapeConfig("serve_d", prompt_len + max_new, batch_size, "decode")
+        self.prefill = build_prefill_step(cfg, shape, self.device).fn
+        self.decode = build_decode_step(cfg, dshape, self.device).fn
+        self.tok = ByteTokenizer(cfg.vocab_size)
+
+    # -- request pipeline -----------------------------------------------------
+    def _batches(self, prompts: Iterable[str]):
+        def tokenize(p: str) -> dict:
+            ids = self.tok.encode(p, add_eos=False)[: self.prompt_len]
+            padded = np.zeros(self.prompt_len, np.int32)
+            padded[-len(ids):] = ids  # left-pad so decode positions align
+            return {"prompt": p, "tokens": padded}
+
+        def to_batch(rows: list[dict]) -> dict:
+            return {
+                "prompts": [r["prompt"] for r in rows],
+                "tokens": np.stack([r["tokens"] for r in rows]),
+            }
+
+        return (
+            PipelineBuilder()
+            .add_source(prompts, name="requests")
+            .pipe(tokenize, concurrency=4, name="tokenize")
+            .aggregate(self.batch_size, drop_last=False, name="batch")
+            .pipe(to_batch, name="collate")
+            .add_sink(buffer_size=2)
+            .build(num_threads=4)
+        )
+
+    def generate(self, prompts: list[str]) -> list[ServeResult]:
+        results: list[ServeResult] = []
+        pipe = self._batches(prompts)
+        with pipe.auto_stop():
+            for batch in pipe:
+                results.extend(self._generate_batch(batch))
+        return results
+
+    def _generate_batch(self, batch) -> list[ServeResult]:
+        toks = batch["tokens"]
+        b = toks.shape[0]
+        if b < self.batch_size:  # pad the ragged tail batch
+            toks = np.concatenate([toks, np.zeros((self.batch_size - b, toks.shape[1]), np.int32)])
+        logits, caches = self.prefill(
+            self.params, {"tokens": toks}, seq_cap=self.prompt_len + self.max_new
+        )
+        cur = logits.argmax(dim=-1, keepdim=True)  # greedy; first index on ties
+        steps = []
+        for t in range(self.max_new):
+            steps.append(cur)
+            logits, caches = self.decode(self.params, caches, cur, self.prompt_len + t)
+            cur = logits.argmax(dim=-1, keepdim=True)
+        out_ids = torch.cat(steps, dim=1).cpu().tolist()  # one sync per batch
+        return [
+            ServeResult(p, ids, self.tok.decode(np.array(ids)))
+            for p, ids in zip(batch["prompts"], out_ids[:b])
+        ]

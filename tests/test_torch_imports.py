@@ -69,7 +69,8 @@ def test_no_source_names_jax_or_the_reference_in_an_import(path):
 COPIED = [
     "core/_compat.py", "core/errors.py", "core/trace.py", "core/stats.py",
     "core/queues.py", "core/engine.py", "core/pipeline.py", "core/builder.py",
-    "data/codec.py", "data/dataset.py", "data/sampler.py",
+    "data/codec.py", "data/dataset.py", "data/sampler.py", "data/tokenizer.py",
+    *sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py")),
 ]
 
 
@@ -81,10 +82,14 @@ def test_copied_modules_match_the_reference_byte_for_byte(rel):
 
 
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch, tmp_path):
-    """``DeviceTransfer()`` and ``build_image_loader(ds)`` mean CUDA; with no
-    card they raise rather than pick the CPU."""
+    """``DeviceTransfer()``, ``build_image_loader(ds)``, ``Model.init`` and
+    ``BatchServer`` mean CUDA; with no card they raise rather than pick the
+    CPU."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticImageDataset, build_image_loader
     from repro_torch.data.transfer import DeviceTransfer
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -92,3 +97,10 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch, tmp_path
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_image_loader(SyntheticImageDataset.materialize(tmp_path, 2, hw=(8, 8)))
     assert DeviceTransfer("cpu").device == torch.device("cpu")
+    model = Model(get_smoke_config("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    params = model.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchServer(model.cfg, params)
+    assert BatchServer(model.cfg, params, device="cpu").device == torch.device("cpu")

@@ -1,0 +1,148 @@
+"""The port's serving path held to the reference model, end to end.
+
+The reference ``Model`` is initialized on the qwen3 smoke config from
+``PRNGKey(0)``; its parameters cross to the port with
+``params_from_reference``; the same seeded tokens then go through both
+``prefill`` (the port's attention in ``flash_attention``, the reference's
+in its plain jnp softmax) and four ``decode_step``s fed the same forced
+tokens.  Logits and K/V caches are compared after each.
+
+Bars: f32, atol = rtol = 1e-4.  bf16, 2e-2 of the largest reference value
+(measured on the CPU: logits up to 8.0e-3 and caches up to 6.9e-3 of it);
+the two stacks round bf16 at other places (flash's blockwise p against a
+full softmax, the order of f32 sums), so element-wise ulp bars do not
+apply.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch import configs as port_configs  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import Model, params_from_reference  # noqa: E402
+from repro_torch.models.params import ParamDef, init_params, param_count  # noqa: E402
+from torch_parity import reference_stack  # noqa: E402,F401
+
+ARCH = "qwen3-0.6b"
+B, S, STEPS = 2, 24, 4  # S = 3 key tiles of 8: the online softmax crosses tiles
+BF16_REL = 2e-2
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a.float().numpy() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+def _close(got, want, dtype, what):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4, err_msg=what)
+    else:
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= BF16_REL, f"{what}: max |diff| is {err:.3g} of the largest value"
+
+
+def _configs(ref, dtype):
+    ref_cfg = dataclasses.replace(ref.get_smoke_config(ARCH), dtype=dtype)
+    cfg = dataclasses.replace(port_configs.get_smoke_config(ARCH), dtype=dtype)
+    return ref_cfg, cfg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_match_the_reference(reference_stack, dtype):  # noqa: F811
+    ref = reference_stack
+    ref_cfg, cfg = _configs(ref, dtype)
+    ref_model = ref.Model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    model = Model(cfg)
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    assert model.param_count() == ref_model.param_count()
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (STEPS, B, 1), dtype=np.int32)
+
+    want_logits, want_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
+    launches = fa.flash_attention.launches
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, seq_cap=S + STEPS)
+    assert fa.flash_attention.launches == launches  # CPU tensors: the plain version
+    _close(logits, want_logits, dtype, "prefill logits")
+    for seg, want_seg in zip(cache, want_cache):
+        for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+            for name in ("k", "v"):
+                _close(blk[name][:, :, :S], want_blk[name], dtype, f"prefill cache {name}")
+                assert not blk[name][:, :, S:].any()
+
+    want_cache = jax.tree.map(
+        lambda x: jnp.pad(x, [(0, 0), (0, 0), (0, STEPS), (0, 0), (0, 0)]), want_cache
+    )
+    for t in range(STEPS):
+        want_logits, want_cache = ref_model.decode_step(
+            ref_params, want_cache, jnp.asarray(forced[t]), jnp.int32(S + t)
+        )
+        logits, cache = model.decode_step(params, cache, torch.from_numpy(forced[t]), S + t)
+        _close(logits, want_logits, dtype, f"decode step {t} logits")
+    for seg, want_seg in zip(cache, want_cache):
+        for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+            for name in ("k", "v"):
+                _close(blk[name], want_blk[name], dtype, f"cache {name} after decode")
+
+
+def test_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F811
+    ref_cfg, cfg = _configs(reference_stack, "bfloat16")
+    ref_params = reference_stack.Model(ref_cfg).init(jax.random.PRNGKey(1))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    block = params["segments"][0]["blocks"][0]
+    assert params["head"] == {}
+    assert block["mixer"]["wq"].dtype == torch.bfloat16
+    assert block["mixer"]["q_norm"].dtype == torch.float32
+    assert tuple(block["mixer"]["wq"].shape) == (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.resolved_head_dim)
+    want = np.asarray(ref_params["embed"]["tok"], np.float32)
+    np.testing.assert_array_equal(params["embed"]["tok"].float().numpy(), want)
+
+
+def test_init_params_draws_the_reference_scales():
+    defs = {
+        "w": ParamDef((64, 256), ("embed", "ffn"), torch.float32),
+        "o": ParamDef((4, 32, 64), ("heads", None, "embed"), torch.float32, fan_in_dims=(0, 1)),
+        "e": ParamDef((1, 512, 64), (None, "vocab_in", "embed"), torch.bfloat16, "embed_normal"),
+        "s": ParamDef((64,), (None,), torch.float32, "ones"),
+    }
+    p = init_params(defs, seed=3, device="cpu")
+    assert param_count(defs) == 64 * 256 + 4 * 32 * 64 + 512 * 64 + 64
+    assert abs(p["w"].std().item() - 64**-0.5) < 0.1 * 64**-0.5  # fan-in: dim -2
+    assert abs(p["o"].std().item() - 128**-0.5) < 0.1 * 128**-0.5  # fan-in: dims 0 and 1
+    assert abs(p["e"].float().std().item() - 1.0) < 0.1 and p["e"].dtype == torch.bfloat16
+    assert torch.equal(p["s"], torch.ones(64))
+    again = init_params(defs, seed=3, device="cpu")
+    assert all(torch.equal(p[k], again[k]) for k in defs)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v3-671b", "granite-moe-1b-a400m", "musicgen-medium"])
+def test_blocks_of_later_slices_raise_not_implemented(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(port_configs.get_smoke_config(arch))
+
+
+def test_cache_spec_matches_the_allocated_cache():
+    cfg = port_configs.get_smoke_config(ARCH)
+    model = Model(cfg)
+    spec = model.cache_spec(3, 40)
+    cache = model.new_cache(3, 40, "cpu")
+    shape = (cfg.num_layers, 3, 40, cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert spec == [{"blocks": [{"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}]}]
+    assert [tuple(t.shape) for t in cache[0]["blocks"][0].values()] == [shape, shape]
+
+
+def test_prefill_length_must_tile_the_kernel():
+    cfg = port_configs.get_smoke_config(ARCH)
+    model = Model(cfg)
+    params = model.init(0, "cpu")
+    with pytest.raises(ValueError, match="multiple"):
+        model.prefill(params, {"tokens": torch.zeros((1, 12), dtype=torch.int64) + 3})

@@ -1,11 +1,14 @@
-"""Tolerances shared by the tests that hold ``repro_torch`` to ``repro``.
+"""Tolerances and fixtures shared by the tests that hold ``repro_torch`` to
+``repro``.
 
 bf16 output may differ by one bf16 ulp (the two frameworks may round an
 intermediate at another place); f32 output by 2e-5 absolute, the kernel
-suite's f32 bar (``tests/test_kernels.py``).
+suite's f32 bar (``tests/test_kernels.py``).  ``reference_stack`` imports
+the reference's model stack for the tests of the serving path.
 """
 
 import numpy as np
+import pytest
 
 F32_ATOL = 2e-5
 
@@ -29,3 +32,71 @@ def assert_f32_close(got, want) -> None:
     np.testing.assert_allclose(
         np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=0, atol=F32_ATOL
     )
+
+
+# ---------------------------------------------------------------------------
+# the reference model stack, importable through a stub ``repro.dist``
+# ---------------------------------------------------------------------------
+
+_STACK = ("repro.dist", "repro.models", "repro.launch", "repro.runtime")
+
+
+def _in_stack(name: str) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in _STACK)
+
+
+def _dist_stub() -> dict:
+    """``repro.dist`` as far as the reference's serving path reads it: no
+    mesh, no sharding hints, and a plan that repeats no kv heads."""
+    import contextlib
+    import dataclasses
+    import types
+
+    @dataclasses.dataclass(frozen=True)
+    class ParallelPlan:
+        kv_repeat: int = 1
+        mesh: object = None
+
+    hints = types.ModuleType("repro.dist.hints")
+    hints.hint = lambda x, *a, **k: x
+    hints.mesh_context = lambda *a, **k: contextlib.nullcontext()
+    sharding = types.ModuleType("repro.dist.sharding")
+    sharding.ParallelPlan = ParallelPlan
+    sharding.NULL_PLAN = ParallelPlan()
+    sharding.make_plan = lambda *a, **k: ParallelPlan()
+    sharding.batch_axes_for = lambda *a, **k: None
+    dist = types.ModuleType("repro.dist")
+    dist.hints, dist.sharding = hints, sharding
+    return {"repro.dist": dist, "repro.dist.hints": hints, "repro.dist.sharding": sharding}
+
+
+@pytest.fixture
+def reference_stack(monkeypatch):
+    """The reference's ``Model``, ``BatchServer`` and configs, imported with
+    a stub ``repro.dist`` (ROADMAP F-ref-1: the package does not exist).
+
+    On teardown every module of the stack leaves ``sys.modules`` (and the
+    ``repro`` package's attributes), so other test files of the same worker
+    still find ``repro.dist`` missing and skip as before."""
+    import sys
+    import types
+
+    import repro
+
+    before = {k for k in sys.modules if _in_stack(k)}
+    for name in before:
+        monkeypatch.delitem(sys.modules, name)
+    for name, mod in _dist_stub().items():
+        monkeypatch.setitem(sys.modules, name, mod)
+    try:
+        from repro.configs import get_smoke_config
+        from repro.models import Model
+        from repro.runtime.server import BatchServer
+
+        yield types.SimpleNamespace(Model=Model, BatchServer=BatchServer, get_smoke_config=get_smoke_config)
+    finally:
+        for name in [k for k in sys.modules if _in_stack(k) and k not in before]:
+            del sys.modules[name]
+        for attr in ("dist", "models", "launch", "runtime"):
+            if f"repro.{attr}" not in before:
+                repro.__dict__.pop(attr, None)
