@@ -9,10 +9,13 @@ holds each against its plain PyTorch version at the main paths' shapes
   - the port's image loader at ImageNet training geometry (256x256 RGB
     frames, batch 128, random 224x224 crops and flips decoded on the card)
     and checks every delivered batch against the same loader run on the CPU;
-  - Qwen3-0.6B at full width, cut to 2 layers, on the card against the
-    same model and weights on the CPU (prefill, then 4 decode steps);
+  - Qwen3-0.6B and Mamba2-780m at full width, cut to 2 layers, on the card
+    against the same model and weights on the CPU (prefill, then 4 decode
+    steps);
   - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
-    seed-initialized weights), prefill attention in ``flash_attention``.
+    seed-initialized weights), prefill attention in ``flash_attention``;
+  - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
+    seed-initialized weights), the prefill scan in ``ssd_scan``.
 Each phase prints one JSON line.  The last three lines are the kernel
 summary, the card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": ...}``.
@@ -53,6 +56,7 @@ OPS_PER_ELEMENT = 3  # x*scale, -mean_c, *(1/std_c)
 BF16_BAR, F32_BAR = "1 bf16 ulp", 2e-5
 TIMED_RUNS = 30
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TOL, atol and rtol
+SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
 
@@ -295,13 +299,13 @@ def phase_example(ds, dev: torch.device, summary: dict) -> None:
         summary["dequant_normalize"]["max_abs_err"], worst["max_abs_err"])
 
 
-def within_tol(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """|got - want| against ``FA_TOL`` as atol and rtol, and bf16 ulps apart."""
+def within_tol(got: torch.Tensor, want: torch.Tensor, tols: dict = FA_TOL) -> dict:
+    """|got - want| against ``tols[dtype]`` as atol and rtol, and bf16 ulps apart."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError("non-finite output")
-    tol = FA_TOL[got.dtype]
+    tol = tols[got.dtype]
     err = (got.float() - want.float()).abs()
     row = {"max_abs_err": float(err.max()), "bar": f"atol=rtol={tol}",
            "over_bar": int((err > tol + tol * want.float().abs()).sum())}
@@ -363,6 +367,68 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         emit(row)
 
 
+def ssd_inputs(gen, b, l, h, p, g, n, dtype, dev):
+    """The reference sweep's distributions: x ~ N(0, 1), dt = softplus(N(0, 1)),
+    a = -exp(N(0, 1) / 2), b and c ~ N(0, 0.3^2)."""
+    x = torch.randn((b, l, h, p), generator=gen).to(dev, dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen)).to(dev)
+    a = (-torch.exp(torch.randn(h, generator=gen) * 0.5)).to(dev)
+    bm = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dev, dtype)
+    cm = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dev, dtype)
+    return x, dt, a, bm, cm
+
+
+def ssd_ops(b: int, l: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Multiply-adds x 2 of the scan over the lower triangle of each chunk:
+    C.B^T and S.x on the i >= j pairs, C.h^T and the state update whole."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2 * pairs * n + 2 * pairs * p + 2 * chunk * n * p + 2 * chunk * p * n
+    return b * h * (l // chunk) * per_chunk
+
+
+def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
+    """K4 against its plain version on the card; times at the serving shape
+    (Mamba2-780m, batch 8, prompt 512: chunk 256, 48 heads of 64, one group
+    of d_state 128)."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    cases = [  # name, (b, l, h, p, g, n), chunk, dtype
+        ("main", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.bfloat16),
+        ("f32", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.float32),
+        ("g2", (2, 256, 4, 64, 2, 32), 64, torch.bfloat16),
+        ("g2_f32", (2, 256, 4, 64, 2, 32), 64, torch.float32),
+        ("g4", (1, 256, 4, 64, 4, 128), 128, torch.bfloat16),
+        ("g4_f32", (1, 256, 4, 64, 4, 128), 128, torch.float32),
+    ]
+    entry = summary["ssd_scan"]
+    for name, shape, chunk, dtype in cases:
+        args = ssd_inputs(gen, *shape, dtype, dev)
+        y, h_final = ks.ssd_scan(*args, chunk=chunk)
+        want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk)
+        sync(dev)
+        on_y, on_h = within_tol(y, want_y, SSD_TOL), within_tol(h_final, want_h, SSD_TOL)
+        row = {"phase": "kernels", "kernel": "ssd_scan", "case": name, "b_l_h_p_g_n": list(shape),
+               "chunk": chunk, "dtype": str(dtype), "y": on_y, "h_final": on_h,
+               "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+        entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+        if on_y["over_bar"] or on_h["over_bar"]:
+            emit(row)
+            raise AssertionError(f"ssd_scan {name}: elements over the bar")
+        if name == "main":
+            b, l, h, p, g, n = shape
+            row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk), flush)
+            row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk), flush)
+            row["library_ms"] = None
+            nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h_final))
+            ops = ssd_ops(b, l, h, p, n, chunk)
+            row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S, card))
+            row["f32_cores_ms"] = ops / F32_OPS_PER_S * 1e3  # where products on the CUDA cores in f32 would stop
+            entry.update({key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        emit(row)
+
+
 def _tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree(fn, v) for k, v in tree.items()}
@@ -386,15 +452,17 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def phase_model_check(dev: torch.device) -> None:
-    """Qwen3-0.6B at full width, 2 layers (the CPU run's sake), bf16: the
-    port on the card against the same model and weights on the CPU."""
+def phase_model_check(dev: torch.device, arch: str, seq: int) -> None:
+    """``arch`` at full width, 2 layers (the CPU run's sake), bf16: the port
+    on the card against the same model and weights on the CPU, prefill of
+    ``seq`` tokens then 4 forced decode steps, logits and every cache entry
+    (k/v of attention blocks, the ssm state and conv window of SSD blocks)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
     model = Model(cfg)
-    b, s, steps = 2, 256, 4
+    b, s, steps = 2, seq, 4
     rng = torch.Generator(device="cpu").manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=rng)
     forced = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=rng)
@@ -403,28 +471,33 @@ def phase_model_check(dev: torch.device) -> None:
     def note(what, got, want):
         worst[what] = max(worst.get(what, 0.0), _rel_err(got, want, what))
 
+    def caches(when, cache, want_cache):
+        for seg, want_seg in zip(cache, want_cache):
+            for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+                for name in blk:
+                    note(f"{when}_cache_{name}", blk[name], want_blk[name])
+
     t0 = time.monotonic()
     with torch.inference_mode():
         params = model.init(seed=0, device=dev)
         host_params = _tree(lambda t: t.cpu(), params)
         logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, seq_cap=s + steps)
         want_logits, want_cache = model.prefill(host_params, {"tokens": tokens}, seq_cap=s + steps)
-        note("prefill_logits", logits, want_logits)
-        for name in ("k", "v"):
-            note(f"prefill_cache_{name}", cache[0]["blocks"][0][name], want_cache[0]["blocks"][0][name])
+        # the padded vocab columns hold -2**30 on both sides: leave them out of "largest value"
+        note("prefill_logits", logits[:, :cfg.vocab_size], want_logits[:, :cfg.vocab_size])
+        caches("prefill", cache, want_cache)
         for t in range(steps):
             logits, cache = model.decode_step(params, cache, forced[t].to(dev), s + t)
             want_logits, want_cache = model.decode_step(host_params, want_cache, forced[t], s + t)
-            note("decode_logits", logits, want_logits)
-        for name in ("k", "v"):
-            note(f"final_cache_{name}", cache[0]["blocks"][0][name], want_cache[0]["blocks"][0][name])
+            note("decode_logits", logits[:, :cfg.vocab_size], want_logits[:, :cfg.vocab_size])
+        caches("final", cache, want_cache)
     emit({"phase": "model_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype,
           "max_rel_err_vs_cpu": worst, "bar": f"max |card - cpu| <= {MODEL_REL} * max |cpu|",
           "seconds": time.monotonic() - t0})
     over = {k: v for k, v in worst.items() if v > MODEL_REL}
     if over:
-        raise AssertionError(f"model_check over the bar: {over}")
+        raise AssertionError(f"model_check {arch} over the bar: {over}")
 
 
 def serve_prompts(n: int) -> list[str]:
@@ -437,15 +510,17 @@ def serve_prompts(n: int) -> list[str]:
     return out
 
 
-def phase_serve(dev: torch.device, summary: dict) -> None:
-    """The serving path at full width and depth: ``BatchServer`` on
-    Qwen3-0.6B, seed-initialized on the card, two prefill batches."""
+def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str) -> None:
+    """The serving path at full width and depth: ``BatchServer`` on ``arch``,
+    seed-initialized on the card, two prefill batches; ``kernel`` is the one
+    its prefill launches once a layer."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
     from repro_torch.runtime import BatchServer
 
-    cfg = get_config("qwen3-0.6b")
+    wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
+    cfg = get_config(arch)
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
     server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
@@ -467,11 +542,11 @@ def phase_serve(dev: torch.device, summary: dict) -> None:
     server.prefill = timed(server.prefill, "prefill")
     server.decode = timed(server.decode, "decode")
     prompts = serve_prompts(SERVE_PROMPTS)
-    fa.flash_attention.launches = 0
+    wrapper.launches = 0
     t0 = time.monotonic()
     results = server.generate(prompts)
     wall = time.monotonic() - t0
-    launches = fa.flash_attention.launches
+    launches = wrapper.launches
     batches = -(-SERVE_PROMPTS // SERVE_BATCH)
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     cache_bytes = sum(
@@ -483,19 +558,19 @@ def phase_serve(dev: torch.device, summary: dict) -> None:
           "params": model.param_count(), "dtype": cfg.dtype, "batch": SERVE_BATCH,
           "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW, "prompts": len(prompts),
           "prompt_bytes": [min(map(len, prompts)), max(map(len, prompts))], "prefill_batches": batches,
-          "k3_launches": launches, "results": len(results),
+          "kernel": kernel, "launches": launches, "results": len(results),
           "tokens_per_result": sorted({len(r.token_ids) for r in results}), "all_logits_finite": all(finite),
           "reading": "the timings and bytes below are readings, not gates",
           "prefill_ms_per_batch": times["prefill"], "decode_ms_per_token": statistics.median(times["decode"]),
           "generated_tokens_per_s": sum(len(r.token_ids) for r in results) / wall, "wall_s": wall,
-          "param_bytes": param_bytes, "kv_cache_bytes": cache_bytes})
+          "param_bytes": param_bytes, "cache_bytes": cache_bytes})
     if launches != cfg.num_layers * batches:
-        raise AssertionError(f"K3 launched {launches} times for {batches} prefill batches of {cfg.num_layers} layers")
+        raise AssertionError(f"{kernel} launched {launches} times for {batches} prefill batches of {cfg.num_layers} layers")
     if len(results) != len(prompts) or any(len(r.token_ids) != SERVE_NEW for r in results):
         raise AssertionError("a request did not get its tokens")
     if not all(finite):
         raise AssertionError("non-finite logits")
-    summary["flash_attention"]["launches"] = launches
+    summary[kernel]["launches"] = launches
 
 
 def main() -> int:
@@ -524,20 +599,29 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:88", "launches": 0, "max_abs_err": 0.0,
         "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
     }
+    summary["ssd_scan"] = {
+        "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:91", "launches": 0, "max_abs_err": 0.0,
+        "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+        "library_note": "no single PyTorch call computes the SSD chunked scan",
+    }
     try:
         dev = torch.device("cuda", 0)
         smi = phase_device()
         phase_build()
         phase_kernels(dev, summary, smi)
         phase_flash(dev, summary, smi)
-        phase_model_check(dev)
+        phase_ssd(dev, summary, smi)
+        phase_model_check(dev, "qwen3-0.6b", 256)
+        phase_model_check(dev, "mamba2-780m", 512)  # two chunks of 256
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
             emit({"phase": "dataset", "frames": FRAMES, "hw": list(FRAME), "seconds": time.monotonic() - t0})
             phase_main(ds, dev, summary)
             phase_example(ds, dev, summary)
-        phase_serve(dev, summary)
+        phase_serve(dev, summary, "qwen3-0.6b", "flash_attention")
+        phase_serve(dev, summary, "mamba2-780m", "ssd_scan")
     except Exception:
         traceback.print_exc()
         return 1

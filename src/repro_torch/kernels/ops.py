@@ -11,5 +11,6 @@ from __future__ import annotations
 
 from .dequant_normalize import dequant_normalize, dequant_normalize_augment
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 
-__all__ = ["dequant_normalize", "dequant_normalize_augment", "flash_attention"]
+__all__ = ["dequant_normalize", "dequant_normalize_augment", "flash_attention", "ssd_scan"]

@@ -1,0 +1,164 @@
+"""Mamba2 SSD chunked scan: the prefill scan of the SSD block.
+
+x (B, L, H, P) with step sizes dt (B, L, H) f32 and per-head decays a (H,)
+f32 (negative) runs through the state-space recurrence whose input and
+output maps b and c (B, L, G, N) are shared by the H // G heads of a group:
+head ``hi`` reads group ``hi // (H // G)``, so b and c are never repeated
+in memory.  Returns y (B, L, H, P) in x's dtype and the final state
+h_final (B, H, P, N) f32.
+
+The arithmetic is the Pallas body's (``src/repro/kernels/ssd_scan.py``),
+not ``ssd_chunked``'s or the stepwise oracle's.  Chunk by chunk, in f32,
+with the state h (P, N) carried from chunk to chunk:
+
+    cs   = cumsum(dt * a)
+    L    = where(i >= j, exp(cs_i - cs_j), 0)
+    y    = ((C . B^T) * L * dt_j) . x  +  exp(cs_i) * (C . h^T)
+    h   <- exp(cs_last) * h + (x * exp(cs_last - cs) * dt)^T . B
+
+y takes the state from before the chunk's update, and is rounded to x's
+dtype once per chunk.  The running sum of ``cs`` is kept in float64 and
+each prefix rounded to f32: a chunk of 256 steps reaches |cs| of a few
+hundred, where an f32 ulp is 3e-5, and a sum taken in another order would
+move ``exp(cs_i - cs_j)`` by as much as the f32 bar.  With the double sum
+the kernel and the plain version agree on ``cs`` bit for bit.
+
+``ssd_scan`` dispatches on the device of x: a CPU tensor goes through
+``ssd_scan_plain`` beside it, a CUDA tensor launches the hand-written
+kernel in ``csrc/ssd_scan.cu`` (or raises), and each launch adds one to
+``ssd_scan.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_KERNEL_HEAD_DIMS = (16, 32, 48, 64)  # P: a block keeps (64 rows x P) of y in registers
+_KERNEL_MAX_STATE = 128  # N: a multiple of 16; a thread keeps N / 16 columns of the state update
+
+
+def _check(x, dt, a, b, c, chunk: int) -> None:
+    """The reference's assertions, raised as errors, plus shapes and dtypes."""
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 4 or c.dim() != 4:
+        raise ValueError(
+            f"want x (B,L,H,P), dt (B,L,H), a (H,), b and c (B,L,G,N); got {tuple(x.shape)}, "
+            f"{tuple(dt.shape)}, {tuple(a.shape)}, {tuple(b.shape)}, {tuple(c.shape)}"
+        )
+    bsz, l, h, _ = x.shape
+    if tuple(dt.shape) != (bsz, l, h) or tuple(a.shape) != (h,):
+        raise ValueError(f"dt must be {(bsz, l, h)} and a {(h,)}; got {tuple(dt.shape)}, {tuple(a.shape)}")
+    if b.shape != c.shape or tuple(b.shape[:2]) != (bsz, l):
+        raise ValueError(f"b and c must both be ({bsz}, {l}, G, N); got {tuple(b.shape)}, {tuple(c.shape)}")
+    g = b.shape[2]
+    if g == 0 or h % g:
+        raise ValueError(f"heads {h} must be a multiple of groups {g}")
+    if chunk <= 0 or l % chunk:
+        raise ValueError(f"sequence length {l} must be a multiple of chunk={chunk}")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b and c must all be bfloat16 or all float32; got {x.dtype}, {b.dtype}, {c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"dt and a must be float32; got {dt.dtype}, {a.dtype}")
+    if not (x.device == dt.device == a.device == b.device == c.device):
+        raise ValueError(f"x, dt, a, b and c lie on {x.device}, {dt.device}, {a.device}, {b.device}, {c.device}")
+
+
+def chunk_cumsum(da: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 prefix sums of ``da`` along ``dim``, summed in float64 (see the
+    module docstring): what the kernel computes."""
+    return torch.cumsum(da.double(), dim=dim).float()
+
+
+def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``ssd_scan`` (any device): the Pallas body
+    chunk by chunk, for all batches and heads at once."""
+    _check(x, dt, a, b, c, chunk)
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hg = h // g
+    nc = l // chunk
+    # heads as (group, head in group): head hi = gi * hg + k reads group gi
+    xf = x.float().reshape(bsz, nc, chunk, g, hg, p)
+    dtf = dt.reshape(bsz, nc, chunk, g, hg)
+    bf = b.float().reshape(bsz, nc, chunk, g, n)
+    cf = c.float().reshape(bsz, nc, chunk, g, n)
+    ag = a.reshape(g, hg)
+    idx = torch.arange(chunk, device=x.device)
+    lower = (idx[:, None] >= idx[None, :])[None, :, :, None, None]  # (1, i, j, 1, 1)
+    state = torch.zeros((bsz, g, hg, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for ci in range(nc):
+        xc, dtc, bc, cc = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci]
+        cs = chunk_cumsum(dtc * ag, dim=1)  # (B, Q, G, HG)
+        seg = cs[:, :, None] - cs[:, None, :]  # (B, i, j, G, HG)
+        el = torch.where(lower, torch.exp(seg), 0.0)
+        cb = torch.einsum("bign,bjgn->bijg", cc, bc)
+        scores = cb[..., None] * el * dtc[:, None]  # column j scaled by dt_j
+        y = torch.einsum("bijgk,bjgkp->bigkp", scores, xc)
+        y = y + torch.exp(cs)[..., None] * torch.einsum("bign,bgkpn->bigkp", cc, state)
+        xw = xc * (torch.exp(cs[:, -1:] - cs) * dtc)[..., None]
+        upd = torch.einsum("bqgkp,bqgn->bgkpn", xw, bc)
+        state = state * torch.exp(cs[:, -1])[..., None, None] + upd
+        ys.append(y.reshape(bsz, chunk, h, p).to(x.dtype))
+    return torch.cat(ys, dim=1), state.reshape(bsz, h, p, n)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("ssd_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.ssd_launch.restype = i
+    return lib
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) f32
+    a: torch.Tensor,  # (H,) f32, negative
+    b: torch.Tensor,  # (B, L, G, N)
+    c: torch.Tensor,  # (B, L, G, N)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) f32).
+    Raises ``ValueError`` where the reference asserts: ``H % G`` and
+    ``L % chunk``."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: x must lie on the CPU or a CUDA device; got {x.device}")
+    _check(x, dt, a, b, c, chunk)
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if p not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"ssd_scan: the CUDA kernel takes head_dim in {_KERNEL_HEAD_DIMS}; got {p}")
+    if n % 16 or n > _KERNEL_MAX_STATE:
+        raise ValueError(f"ssd_scan: the CUDA kernel takes d_state a multiple of 16 up to {_KERNEL_MAX_STATE}; got {n}")
+    if bsz * h > 2**31 - 1:
+        raise ValueError(f"ssd_scan: batch {bsz} x heads {h} is too many blocks")
+    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous")
+    y = torch.empty_like(x)
+    h_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return y, h_final.zero_()
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), h_final.data_ptr(), _DTYPES[x.dtype], bsz, l, h, p, g, n, chunk, stream,
+        )
+    _build.check(lib, err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, h_final
+
+
+ssd_scan.launches = 0

@@ -5,8 +5,9 @@
 - ``cache_spec(batch, seq_cap)`` → the cache's shapes and dtypes;
   ``new_cache(batch, seq_cap, device)`` allocates it.
 
-Dense GQA decoders.  MoE, MLA, SSD, the multi-codebook audio head, the
-vision prefix, MTP and ``train_loss`` come with later slices (ROADMAP §1).
+Dense GQA decoders and attention-free Mamba2 (SSD) stacks.  MoE, MLA, the
+multi-codebook audio head, the vision prefix, MTP and ``train_loss`` come
+with later slices (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -63,15 +64,29 @@ class Model:
     # ------------------------------------------------------------------
     def cache_spec(self, batch: int, seq_cap: int) -> list:
         """Shapes and dtypes of the cache, in the prefill cache's structure:
-        per segment ``{"blocks": [{"k": (shape, dtype), "v": ...}]}`` with
-        k/v (n_repeat, B, seq_cap, kv_heads, head_dim)."""
-        cfg = self.cfg
-        shape = (batch, seq_cap, cfg.num_kv_heads, cfg.resolved_head_dim)
+        per segment ``{"blocks": [...]}``, one dict per block of the
+        super-block, each entry (n_repeat, B, ...).  Attention blocks hold
+        k/v (n_repeat, B, seq_cap, kv_heads, head_dim); SSD blocks hold the
+        state ``ssm`` (n_repeat, B, H, P, N) f32 and the conv window
+        ``conv`` (n_repeat, B, d_conv - 1, conv_dim), neither of which
+        depends on ``seq_cap``."""
         return [
-            {"blocks": [{name: ((n_repeat, *shape), dtype_of(cfg)) for name in ("k", "v")}
-                        for _ in plan]}
-            for plan, n_repeat in cfg.segments()
+            {"blocks": [self._mixer_cache_spec(kind, n_repeat, batch, seq_cap) for kind, _ in plan]}
+            for plan, n_repeat in self.cfg.segments()
         ]
+
+    def _mixer_cache_spec(self, kind: str, n: int, b: int, s_cap: int) -> dict:
+        cfg = self.cfg
+        dt = dtype_of(cfg)
+        if kind == "attn":
+            shape = (n, b, s_cap, cfg.num_kv_heads, cfg.resolved_head_dim)
+            return {"k": (shape, dt), "v": (shape, dt)}
+        s = cfg.ssd
+        conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        return {
+            "ssm": ((n, b, s.n_heads(cfg.d_model), s.head_dim, s.d_state), torch.float32),
+            "conv": ((n, b, s.d_conv - 1, conv_dim), dt),
+        }
 
     def new_cache(self, batch: int, seq_cap: int, device: torch.device | str) -> list:
         """A zeroed cache of capacity ``seq_cap`` on ``device``."""
@@ -87,8 +102,9 @@ class Model:
     def prefill(self, params: dict, batch: dict, seq_cap: int | None = None) -> tuple[torch.Tensor, list]:
         """batch["tokens"] (B, S) → (logits (B, padded_vocab), cache).
 
-        The cache has capacity ``seq_cap`` (default S) and holds the prompt's
-        k/v in slots 0..S-1; decode steps write the slots after them."""
+        An attention cache has capacity ``seq_cap`` (default S) and holds the
+        prompt's k/v in slots 0..S-1; decode steps write the slots after
+        them.  An SSD cache holds the state after the prompt."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = apply_embed(cfg, params["embed"], tokens)

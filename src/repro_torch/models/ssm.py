@@ -1,0 +1,180 @@
+"""Mamba2 SSD (state-space duality) block for serving [arXiv:2405.21060].
+
+Prefill runs the chunked SSD scan in the hand-written ``ssd_scan`` kernel
+(quadratic-within-chunk "dual" form plus the linear state recurrence
+between chunks); decode runs the plain one-token recurrence.  Both write
+the layer's state into a preallocated cache in place: ``cache["ssm"]``
+(B, H, P, N) f32 and ``cache["conv"]`` (B, K-1, conv_dim), the last K-1
+inputs of the causal conv.
+
+The reference's ``ssd_chunked`` and stepwise oracle ``ssd_recurrent`` are
+not ported (the training slice, ROADMAP §1); nor is ``ssd_block_train``.
+
+Shapes: x (B,L,H,P) head-split inputs, dt (B,L,H), A (H,) negative decay,
+B/C (B,L,G,N) with G groups broadcast over heads.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .layers import dtype_of, rms_norm_simple
+from .params import ParamDef
+
+
+def ssd_decode_step(x, dt, A, B, C, h):
+    """One-token recurrence.  x (B,H,P), dt (B,H), B/C (B,G,N), h (B,H,P,N).
+    Returns (y (B,H,P) in x's dtype, h_new)."""
+    b, nh, p = x.shape
+    g, n = B.shape[1], B.shape[2]
+    # heads as (group, head in group), so B and C broadcast instead of repeating
+    xg = x.float().reshape(b, g, nh // g, p)
+    dtg = dt.reshape(b, g, nh // g)
+    decay = torch.exp(dt * A)[:, :, None, None]
+    upd = (dtg[..., None] * xg)[..., None] * B.float()[:, :, None, None, :]  # (B,G,HG,P,N)
+    hnew = decay * h + upd.reshape(b, nh, p, n)
+    y = torch.einsum("bgkpn,bgn->bgkp", hnew.reshape(b, g, nh // g, p, n), C.float())
+    return y.reshape(b, nh, p).to(x.dtype), hnew
+
+
+# ---------------------------------------------------------------------------
+# full Mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def ssd_defs(cfg: ModelConfig) -> dict:
+    s = cfg.ssd
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.n_heads(d)
+    conv_dim = di + 2 * s.n_groups * s.d_state
+    zxbcdt = 2 * di + 2 * s.n_groups * s.d_state + nh
+    dt = dtype_of(cfg)
+    return {
+        "in_proj": ParamDef((d, zxbcdt), ("embed", "d_inner"), dt),
+        "conv_w": ParamDef((s.d_conv, conv_dim), (None, "conv_dim"), dt),
+        "conv_b": ParamDef((conv_dim,), ("conv_dim",), dt, "zeros"),
+        "A_log": ParamDef((nh,), ("ssd_heads",), torch.float32, "zeros"),
+        "dt_bias": ParamDef((nh,), ("ssd_heads",), torch.float32, "zeros"),
+        "D": ParamDef((nh,), ("ssd_heads",), torch.float32, "ones"),
+        "norm": ParamDef((di,), ("d_inner",), torch.float32, "ones"),
+        "out_proj": ParamDef((di, d), ("d_inner", "embed"), dt),
+    }
+
+
+def _silu(x):
+    """``jax.nn.silu`` as the reference computes it: x * 1 / (1 + exp(-x)),
+    each op rounded to x's dtype.  ``F.silu`` rounds once, which in bf16
+    moves a third of the values by an ulp, and the scan carries that into
+    the state."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _split_zxbcdt(cfg: ModelConfig, zxbcdt):
+    s = cfg.ssd
+    di = s.d_inner(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di : 2 * di + 2 * gn]
+    dt_raw = zxbcdt[..., 2 * di + 2 * gn :]
+    return z, xBC, dt_raw
+
+
+def _causal_conv(xBC, w, b):
+    """Depthwise causal conv over time.  xBC (B,L,C), w (K,C): the K-tap
+    FIR summed tap by tap in xBC's dtype, as the reference does."""
+    k, l = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, k - 1, 0))
+    y = pad[:, 0:l, :] * w[0]
+    for i in range(1, k):
+        y = y + pad[:, i : i + l, :] * w[i]
+    return y + b
+
+
+def _conv_step(x_t, conv_state, w, b):
+    """x_t (B,C); conv_state (B,K-1,C) holding the previous inputs."""
+    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B,K,C)
+    y = torch.einsum("bkc,kc->bc", full, w) + b
+    return y, full[:, 1:, :]
+
+
+def _last_conv_window(xBC, d_conv):
+    l = xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, max(0, d_conv - 1 - l), 0))
+    return pad[:, -(d_conv - 1) :, :]
+
+
+def _best_chunk(l, pref):
+    for c in (pref, 128, 64, 32, 16, 8, 4, 2, 1):
+        if c <= l and l % c == 0:
+            return c
+    return 1
+
+
+def scan_chunk(cfg: ModelConfig, l: int) -> int:
+    """The reference's chunk for a prompt of ``l`` tokens: ``SSDConfig.chunk``
+    where it divides ``l``, else the largest of 128, 64, ... that does."""
+    c = min(cfg.ssd.chunk, l)
+    return c if l % c == 0 else _best_chunk(l, cfg.ssd.chunk)
+
+
+def _gate_norm_out(p: dict, y, xs, z):
+    """y + D * x, gated by silu(z), normed and projected.  ``D * xs`` makes
+    y f32, as in the reference, so the norm and the output projection run
+    in f32 (the bf16 ``out_proj`` is widened to f32 for the product)."""
+    y = y + p["D"][:, None] * xs
+    y = y.reshape(*y.shape[:-2], -1)
+    y = rms_norm_simple(y * _silu(z), p["norm"])
+    return y @ p["out_proj"].float()
+
+
+def ssd_block_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
+    """The block over the prompt x (B,L,D); writes the final state and the
+    last conv window into ``cache["ssm"]`` and ``cache["conv"]``."""
+    s = cfg.ssd
+    b, l, _ = x.shape
+    di = s.d_inner(cfg.d_model)
+    nh = s.n_heads(cfg.d_model)
+    gn = s.n_groups * s.d_state
+
+    zxbcdt = x @ p["in_proj"]
+    z, xBC_raw, dt_raw = _split_zxbcdt(cfg, zxbcdt)
+    cache["conv"].copy_(_last_conv_window(xBC_raw, s.d_conv))  # for decode continuation
+    xBC = _silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    xs = xBC[..., :di].reshape(b, l, nh, s.head_dim).contiguous()
+    Bm = xBC[..., di : di + gn].reshape(b, l, s.n_groups, s.d_state).contiguous()
+    Cm = xBC[..., di + gn :].reshape(b, l, s.n_groups, s.d_state).contiguous()
+    dtv = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,L,H)
+    A = -torch.exp(p["A_log"])
+
+    y, h_fin = ops.ssd_scan(xs, dtv, A, Bm, Cm, chunk=scan_chunk(cfg, l))
+    cache["ssm"].copy_(h_fin)
+    return _gate_norm_out(p, y, xs, z)
+
+
+def ssd_block_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int):
+    """x (B,1,D); advances ``cache["ssm"]`` (B,H,P,N) f32 and
+    ``cache["conv"]`` (B,K-1,C) in place by one token."""
+    s = cfg.ssd
+    b = x.shape[0]
+    di = s.d_inner(cfg.d_model)
+    nh = s.n_heads(cfg.d_model)
+    gn = s.n_groups * s.d_state
+
+    zxbcdt = x[:, 0, :] @ p["in_proj"]  # (B, zxbcdt)
+    z, xBC, dt_raw = _split_zxbcdt(cfg, zxbcdt)
+    xBC, conv_state = _conv_step(xBC, cache["conv"], p["conv_w"], p["conv_b"])
+    cache["conv"].copy_(conv_state)
+    xBC = _silu(xBC)
+    xs = xBC[..., :di].reshape(b, nh, s.head_dim)
+    Bm = xBC[..., di : di + gn].reshape(b, s.n_groups, s.d_state)
+    Cm = xBC[..., di + gn :].reshape(b, s.n_groups, s.d_state)
+    dtv = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,H)
+    A = -torch.exp(p["A_log"])
+
+    y, h_new = ssd_decode_step(xs, dtv, A, Bm, Cm, cache["ssm"])
+    cache["ssm"].copy_(h_new)
+    return _gate_norm_out(p, y, xs, z)[:, None, :]

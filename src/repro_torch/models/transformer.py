@@ -1,11 +1,13 @@
-"""Block assembly: (attention + FFN) layers, grouped into stacked segments.
+"""Block assembly: (mixer + FFN) layers, grouped into stacked segments.
 
 ``cfg.segments()`` splits the layer stack into repetitions of identical
 super-blocks.  Parameters of a segment are stacked (leading "layers" dim),
 as in the reference, and a segment is applied by a Python loop over that
 dim, indexing views of the stacked weights and caches (the reference's
-``lax.scan``).  Serving only: the training apply waits for the training
-slice, and Mamba2 (``ssd``), MLA and MoE blocks for theirs (ROADMAP §1).
+``lax.scan``).  Serving only, with two mixers: GQA attention (``attn``,
+prefill in the ``flash_attention`` kernel) and the Mamba2 SSD block
+(``ssd``, prefill in the ``ssd_scan`` kernel).  The training apply waits
+for the training slice, and MLA and MoE blocks for theirs (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -13,19 +15,22 @@ from __future__ import annotations
 from typing import Any
 
 from ..configs.base import ModelConfig
-from . import attention
+from . import attention, ssm
 from .layers import apply_ffn, apply_norm, ffn_defs, norm_defs
 from .params import ParamDef, tree_map_defs
 
+MIXER_DEFS = {"attn": attention.attn_defs, "ssd": ssm.ssd_defs}
+MIXER_PREFILL = {"attn": attention.attn_prefill, "ssd": ssm.ssd_block_prefill}
+MIXER_DECODE = {"attn": attention.attn_decode, "ssd": ssm.ssd_block_decode}
+
 _NOT_PORTED = {
     "mla": "MLA attention waits for the DeepSeek slice (ROADMAP §1, MoE and MLA)",
-    "ssd": "Mamba2 SSD blocks wait for the Mamba2-780m slice with ssd_scan (ROADMAP §1)",
     "moe": "MoE FFNs wait for the MoE and MLA slice (ROADMAP §1)",
 }
 
 
 def check_supported(kind: str, is_moe: bool) -> None:
-    if kind != "attn":
+    if kind not in MIXER_DEFS:
         raise NotImplementedError(_NOT_PORTED.get(kind, f"unknown block kind {kind!r}"))
     if is_moe:
         raise NotImplementedError(_NOT_PORTED["moe"])
@@ -37,8 +42,8 @@ def check_supported(kind: str, is_moe: bool) -> None:
 
 
 def block_defs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
-    d: dict[str, Any] = {"norm1": norm_defs(cfg), "mixer": attention.attn_defs(cfg)}
-    if cfg.d_ff > 0:
+    d: dict[str, Any] = {"norm1": norm_defs(cfg), "mixer": MIXER_DEFS[kind](cfg)}
+    if is_moe or cfg.d_ff > 0:
         d["norm2"] = norm_defs(cfg)
         d["ffn"] = ffn_defs(cfg)
     return d
@@ -51,15 +56,15 @@ def _ffn_residual(cfg: ModelConfig, p: dict, x):
     return x
 
 
-def block_apply_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
+def block_apply_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions, cache: dict):
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attention.attn_prefill(cfg, p["mixer"], h, positions, cache).to(x.dtype)
+    x = x + MIXER_PREFILL[kind](cfg, p["mixer"], h, positions, cache).to(x.dtype)
     return _ffn_residual(cfg, p, x)
 
 
-def block_apply_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int):
+def block_apply_decode(cfg: ModelConfig, kind: str, p: dict, x, cache: dict, pos: int):
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attention.attn_decode(cfg, p["mixer"], h, cache, pos).to(x.dtype)
+    x = x + MIXER_DECODE[kind](cfg, p["mixer"], h, cache, pos).to(x.dtype)
     return _ffn_residual(cfg, p, x)
 
 
@@ -101,9 +106,9 @@ def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict
     """``segment`` is one ``(super_block_plan, n_repeat)`` of ``cfg.segments()``."""
     plan, n_repeat = segment
     for layer in range(n_repeat):
-        for i in range(len(plan)):
+        for i, (kind, _) in enumerate(plan):
             x = block_apply_prefill(
-                cfg, _layer(seg_params["blocks"][i], layer), x, positions,
+                cfg, kind, _layer(seg_params["blocks"][i], layer), x, positions,
                 _layer(seg_cache["blocks"][i], layer),
             )
     return x
@@ -112,9 +117,9 @@ def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict
 def segment_decode(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, pos: int):
     plan, n_repeat = segment
     for layer in range(n_repeat):
-        for i in range(len(plan)):
+        for i, (kind, _) in enumerate(plan):
             x = block_apply_decode(
-                cfg, _layer(seg_params["blocks"][i], layer), x,
+                cfg, kind, _layer(seg_params["blocks"][i], layer), x,
                 _layer(seg_cache["blocks"][i], layer), pos,
             )
     return x

@@ -2,9 +2,18 @@
 
 Requests stream through an SPDL pipeline (tokenize and pad run on the
 worker pool, as training-side loading does); the server runs a prefill on
-each full batch, prefill attention in the hand-written ``flash_attention``
-kernel, then greedy decode steps against the batch's KV cache, which is
-allocated once at ``prompt_len + max_new`` and written in place.
+each full batch, then greedy decode steps against the batch's cache, which
+is allocated once at ``prompt_len + max_new`` and written in place.
+
+Which kernel a prefill launches depends on the block kind: attention
+blocks (Qwen3 and the other dense decoders) run the hand-written
+``flash_attention`` kernel, once a layer, and keep a KV cache; Mamba2 SSD
+blocks run the hand-written ``ssd_scan`` kernel, once a layer, and keep a
+fixed-size state (``ssm`` and ``conv``).  Decode steps run plain PyTorch:
+masked attention over the KV cache, or the one-token SSD recurrence.  An
+SSD prompt is scanned in chunks of the reference's size
+(``models.ssm.scan_chunk``: ``SSDConfig.chunk`` where it divides
+``prompt_len``, else the largest power of two that does).
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
 """The port's serving path held to the reference model, end to end.
 
-The reference ``Model`` is initialized on the qwen3 smoke config from
-``PRNGKey(0)``; its parameters cross to the port with
-``params_from_reference``; the same seeded tokens then go through both
-``prefill`` (the port's attention in ``flash_attention``, the reference's
-in its plain jnp softmax) and four ``decode_step``s fed the same forced
-tokens.  Logits and K/V caches are compared after each.
+The reference ``Model`` is initialized on a smoke config (qwen3, a dense
+GQA decoder; mamba2, an attention-free SSD stack) from ``PRNGKey(0)``; its
+parameters cross to the port with ``params_from_reference``; the same
+seeded tokens then go through both ``prefill`` (the port's attention in
+``flash_attention`` and its SSD scan in ``ssd_scan``, the reference's in
+its plain jnp softmax and ``ssd_chunked``) and four ``decode_step``s fed
+the same forced tokens.  Logits and caches (k/v of attention blocks, the
+``ssm`` state and ``conv`` window of SSD blocks) are compared after each.
 
 Bars: f32, atol = rtol = 1e-4.  bf16, 2e-2 of the largest reference value
 (measured on the CPU: logits up to 8.0e-3 and caches up to 6.9e-3 of it);
@@ -25,13 +27,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.models import Model, params_from_reference  # noqa: E402
 from repro_torch.models.params import ParamDef, init_params, param_count  # noqa: E402
 from torch_parity import reference_stack  # noqa: E402,F401
 
 ARCH = "qwen3-0.6b"
-B, S, STEPS = 2, 24, 4  # S = 3 key tiles of 8: the online softmax crosses tiles
+ARCHS = ["qwen3-0.6b", "mamba2-780m"]
+# S = 3 key tiles of 8: the online softmax crosses tiles; for mamba2 the
+# reference picks chunk 8 (its 16 does not divide 24): the scan crosses chunks
+B, S, STEPS = 2, 24, 4
 BF16_REL = 2e-2
+_TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _f32(a) -> np.ndarray:
@@ -48,16 +55,27 @@ def _close(got, want, dtype, what):
         assert err <= BF16_REL, f"{what}: max |diff| is {err:.3g} of the largest value"
 
 
-def _configs(ref, dtype):
-    ref_cfg = dataclasses.replace(ref.get_smoke_config(ARCH), dtype=dtype)
-    cfg = dataclasses.replace(port_configs.get_smoke_config(ARCH), dtype=dtype)
+def _configs(ref, dtype, arch=ARCH):
+    ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype=dtype)
+    cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype=dtype)
     return ref_cfg, cfg
 
 
+def _grow(name, x):
+    if name in ("k", "v"):
+        return jnp.pad(x, [(0, 0), (0, 0), (0, STEPS), (0, 0), (0, 0)])
+    return x  # the SSD state does not grow
+
+
+def _launches() -> tuple[int, int]:
+    return fa.flash_attention.launches, ks.ssd_scan.launches
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_match_the_reference(reference_stack, dtype):  # noqa: F811
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_the_reference(reference_stack, arch, dtype):  # noqa: F811
     ref = reference_stack
-    ref_cfg, cfg = _configs(ref, dtype)
+    ref_cfg, cfg = _configs(ref, dtype, arch)
     ref_model = ref.Model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     model = Model(cfg)
@@ -69,19 +87,25 @@ def test_prefill_and_decode_match_the_reference(reference_stack, dtype):  # noqa
     forced = rng.integers(0, cfg.vocab_size, (STEPS, B, 1), dtype=np.int32)
 
     want_logits, want_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
-    launches = fa.flash_attention.launches
+    launches = _launches()
     logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, seq_cap=S + STEPS)
-    assert fa.flash_attention.launches == launches  # CPU tensors: the plain version
+    assert _launches() == launches  # CPU tensors: the plain versions
     _close(logits, want_logits, dtype, "prefill logits")
     for seg, want_seg in zip(cache, want_cache):
         for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
-            for name in ("k", "v"):
-                _close(blk[name][:, :, :S], want_blk[name], dtype, f"prefill cache {name}")
-                assert not blk[name][:, :, S:].any()
+            assert blk.keys() == want_blk.keys()
+            for name in blk:
+                if name in ("k", "v"):  # capacity S + STEPS, the prompt in 0..S-1
+                    _close(blk[name][:, :, :S], want_blk[name], dtype, f"prefill cache {name}")
+                    assert not blk[name][:, :, S:].any()
+                else:
+                    assert blk[name].dtype == _TORCH_DTYPE[str(want_blk[name].dtype)]
+                    _close(blk[name], want_blk[name], dtype, f"prefill cache {name}")
 
-    want_cache = jax.tree.map(
-        lambda x: jnp.pad(x, [(0, 0), (0, 0), (0, STEPS), (0, 0), (0, 0)]), want_cache
-    )
+    want_cache = [  # the reference server's _grow_cache: k/v padded to capacity
+        {"blocks": [{name: _grow(name, x) for name, x in blk.items()} for blk in seg["blocks"]]}
+        for seg in want_cache
+    ]
     for t in range(STEPS):
         want_logits, want_cache = ref_model.decode_step(
             ref_params, want_cache, jnp.asarray(forced[t]), jnp.int32(S + t)
@@ -90,7 +114,7 @@ def test_prefill_and_decode_match_the_reference(reference_stack, dtype):  # noqa
         _close(logits, want_logits, dtype, f"decode step {t} logits")
     for seg, want_seg in zip(cache, want_cache):
         for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
-            for name in ("k", "v"):
+            for name in blk:
                 _close(blk[name], want_blk[name], dtype, f"cache {name} after decode")
 
 
@@ -105,6 +129,31 @@ def test_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F
     assert tuple(block["mixer"]["wq"].shape) == (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.resolved_head_dim)
     want = np.asarray(ref_params["embed"]["tok"], np.float32)
     np.testing.assert_array_equal(params["embed"]["tok"].float().numpy(), want)
+
+
+def test_ssd_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F811
+    ref_cfg, cfg = _configs(reference_stack, "bfloat16", "mamba2-780m")
+    ref_params = reference_stack.Model(ref_cfg).init(jax.random.PRNGKey(1))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    assert params["head"] == {}  # tied embeddings
+    assert len(params["segments"]) == 1 and len(params["segments"][0]["blocks"]) == 1
+    block = params["segments"][0]["blocks"][0]
+    assert sorted(block) == ["mixer", "norm1"]  # d_ff = 0: no FFN
+    mixer = block["mixer"]
+    want_mixer = ref_params["segments"][0]["blocks"][0]["mixer"]
+    assert sorted(mixer) == sorted(want_mixer)
+    for name in ("A_log", "dt_bias", "D", "norm"):
+        assert mixer[name].dtype == torch.float32, name
+    for name in ("in_proj", "conv_w", "conv_b", "out_proj"):
+        assert mixer[name].dtype == torch.bfloat16, name
+    for name, want in want_mixer.items():
+        assert tuple(mixer[name].shape) == want.shape, name
+        np.testing.assert_array_equal(mixer[name].float().numpy(), np.asarray(want, np.float32), err_msg=name)
+    s = cfg.ssd
+    di = s.d_inner(cfg.d_model)
+    assert tuple(mixer["in_proj"].shape) == (
+        cfg.num_layers, cfg.d_model, 2 * di + 2 * s.n_groups * s.d_state + s.n_heads(cfg.d_model)
+    )
 
 
 def test_init_params_draws_the_reference_scales():
@@ -124,7 +173,7 @@ def test_init_params_draws_the_reference_scales():
     assert all(torch.equal(p[k], again[k]) for k in defs)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v3-671b", "granite-moe-1b-a400m", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "deepseek-v3-671b", "granite-moe-1b-a400m", "musicgen-medium"])
 def test_blocks_of_later_slices_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(port_configs.get_smoke_config(arch))
@@ -138,6 +187,20 @@ def test_cache_spec_matches_the_allocated_cache():
     shape = (cfg.num_layers, 3, 40, cfg.num_kv_heads, cfg.resolved_head_dim)
     assert spec == [{"blocks": [{"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}]}]
     assert [tuple(t.shape) for t in cache[0]["blocks"][0].values()] == [shape, shape]
+
+
+def test_ssd_cache_spec_holds_state_not_tokens():
+    cfg = port_configs.get_smoke_config("mamba2-780m")
+    model = Model(cfg)
+    s = cfg.ssd
+    conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+    want = [{"blocks": [{
+        "ssm": ((cfg.num_layers, 3, s.n_heads(cfg.d_model), s.head_dim, s.d_state), torch.float32),
+        "conv": ((cfg.num_layers, 3, s.d_conv - 1, conv_dim), torch.bfloat16),
+    }]}]
+    assert model.cache_spec(3, 40) == model.cache_spec(3, 4000) == want
+    cache = model.new_cache(3, 40, "cpu")
+    assert {k: (tuple(t.shape), t.dtype) for k, t in cache[0]["blocks"][0].items()} == want[0]["blocks"][0]
 
 
 def test_prefill_length_must_tile_the_kernel():

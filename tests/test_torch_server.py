@@ -1,9 +1,9 @@
 """The port's ``BatchServer`` emits the reference's tokens.
 
-Both servers run the f32 qwen3 smoke config on the same carried weights:
-the reference's through its jitted steps (with the stub ``repro.dist``),
-the port's on the CPU, its prefill attention in ``flash_attention``'s
-plain version.  Prompts of mixed lengths, one longer than ``prompt_len``
+Both servers run an f32 smoke config (qwen3, mamba2) on the same carried
+weights: the reference's through its jitted steps (with the stub
+``repro.dist``), the port's on the CPU, its prefill attention in
+``flash_attention``'s plain version and its SSD scan in ``ssd_scan``'s.  Prompts of mixed lengths, one longer than ``prompt_len``
 (cut to it), and a count that leaves a ragged tail batch; greedy decoding
 must give the same token ids, for the same prompts, in the same order.
 """
@@ -21,7 +21,6 @@ from repro_torch.models import params_from_reference  # noqa: E402
 from repro_torch.runtime import BatchServer  # noqa: E402
 from torch_parity import reference_stack  # noqa: E402,F401
 
-ARCH = "qwen3-0.6b"
 PROMPTS = [
     "hello world",
     "data loading is",
@@ -33,10 +32,11 @@ PROMPTS = [
 ]
 
 
-def test_greedy_tokens_match_the_reference(reference_stack):  # noqa: F811
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m"])
+def test_greedy_tokens_match_the_reference(reference_stack, arch):  # noqa: F811
     ref = reference_stack
-    ref_cfg = dataclasses.replace(ref.get_smoke_config(ARCH), dtype="float32")
-    cfg = dataclasses.replace(port_configs.get_smoke_config(ARCH), dtype="float32")
+    ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
     ref_params = ref.Model(ref_cfg).init(jax.random.PRNGKey(0))
     params = params_from_reference(jax.tree.map(np.asarray, ref_params))
 
