@@ -11,7 +11,8 @@ holds each against its plain PyTorch version at the main paths' shapes
     and checks every delivered batch against the same loader run on the CPU;
   - Qwen3-0.6B and Mamba2-780m at full width, cut to 2 layers, on the card
     against the same model and weights on the CPU (prefill, then 4 decode
-    steps);
+    steps), and Qwen3-0.6B so again at a prompt of 20 tokens, which the
+    prefill pads to K3's 64-row tiles (``prefill_ragged``);
   - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
     seed-initialized weights), prefill attention in ``flash_attention``;
   - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
@@ -55,6 +56,7 @@ BF16_TC_OPS_PER_S = 989e12  # bf16 on the tensor cores
 OPS_PER_ELEMENT = 3  # x*scale, -mean_c, *(1/std_c)
 BF16_BAR, F32_BAR = "1 bf16 ulp", 2e-5
 TIMED_RUNS = 30
+HOST_COVER_CYCLES = 200_000  # a device sleep of ~0.1 ms, longer than a wrapper's host time
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TOL, atol and rtol
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
@@ -96,14 +98,18 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, flush: torch.Tensor) -> float:
+def time_ms(fn, flush: torch.Tensor, hide_host: bool = True) -> float:
     """Median device time of ``fn`` over TIMED_RUNS launches, each after an
-    L2 flush (the decode reads a batch that was just copied in, cold)."""
+    L2 flush (the decode reads a batch that was just copied in, cold).  With
+    ``hide_host`` the card sleeps after the flush while the host enqueues
+    ``fn``, so the wrapper's host time before its launch is not counted."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMED_RUNS):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -187,7 +193,7 @@ def phase_kernels(dev: torch.device, summary: dict, card: str) -> None:
             scale = dn.U8_SCALE
             row["ms"] = time_ms(lambda: dn._launch(x, mean, std, params, oh, ow, scale, out_dtype, "k1"), flush)
             row["wrapper_ms"] = time_ms(lambda: dn.dequant_normalize_augment(
-                x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype), flush)
+                x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype), flush, hide_host=False)
             row["plain_ms"] = time_ms(lambda: dn.dequant_normalize_augment_plain(
                 x, mean, std, dflip, dcrop, out_hw=(oh, ow), out_dtype=out_dtype), flush)
             row.update(dequant_bound(n * oh * ow * c, x.element_size(), n * c * oh * ow, got.element_size(),
@@ -322,6 +328,28 @@ def causal_pairs(sq: int, skv: int, causal: bool) -> int:
     return sq * (skv - sq + 1) + sq * (sq - 1) // 2
 
 
+def k3_tiles(sq: int, skv: int, causal: bool, block_k: int, rows: int = 64, keys: int = 64) -> dict:
+    """What the bf16 kernel's loop bounds give for one (batch, head): blocks
+    of 64 query rows, 64-key sub-tiles loaded (K and V each) and multiplied
+    by a warp of 16 rows, and the share of those on the diagonal (masked
+    element by element)."""
+    blocks = loaded = multiplied = diagonal = 0
+    for q0 in range(0, sq, rows):
+        blocks += 1
+        last = min(q0 + rows, sq) - 1 + skv - sq
+        n_sub = min(skv // keys, last // keys + 1) if causal else skv // keys
+        steps = -(-n_sub // (block_k // keys))
+        loaded += n_sub
+        for w0 in range(q0, min(q0 + rows, sq), 16):
+            first = w0 + skv - sq
+            for sub in range(steps * (block_k // keys)):
+                if sub < n_sub and (not causal or sub * keys <= first + 15):
+                    multiplied += 1
+                    diagonal += causal and sub * keys + keys - 1 > first
+    return {"blocks": blocks, "kv_tiles_loaded": loaded, "warp_tiles": multiplied,
+            "diagonal_share": diagonal / multiplied}
+
+
 def library_attention(q, k, v, causal: bool):
     """One PyTorch call for the same function (the yardstick; never on the
     port's path).  SDPA's causal mask is top-left aligned, so it is timed
@@ -331,38 +359,60 @@ def library_attention(q, k, v, causal: bool):
 
 
 def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
-    """K3 against its plain version on the card; times at the serving shape."""
+    """K3 against its plain version on the card, each case on the route its
+    dtype picks (bf16: the tensor-core kernel; f32: the CUDA-core kernel);
+    times at the serving shape for both routes, with each kernel's ptxas
+    registers and spills."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    cases = [  # name, b, h, hkv, sq, skv, hd, dtype, causal
-        ("main", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, torch.bfloat16, True),
-        ("f32", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, torch.float32, True),
-        ("noncausal", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, torch.bfloat16, False),
-        ("right_aligned", 8, 16, 8, 128, SERVE_PROMPT, 128, torch.bfloat16, True),
-        ("mha_hd64", 4, 8, 8, 256, 256, 64, torch.bfloat16, True),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, b, h, hkv, sq, skv, hd, dtype, causal, block_q, block_k
+        ("main", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),
+        ("f32", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, f32, True, 128, 128),
+        ("noncausal", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, False, 128, 128),
+        ("right_aligned", 8, 16, 8, 128, SERVE_PROMPT, 128, bf16, True, 128, 128),
+        ("mha_hd64", 4, 8, 8, 256, 256, 64, bf16, True, 128, 128),
+        ("hd32", 2, 4, 2, 256, 256, 32, bf16, True, 128, 128),  # Qwen3's smoke heads
+        ("block_k64", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 64, 64),
+        ("block_k128_gqa4", 2, 8, 2, 384, 384, 64, bf16, True, 128, 128),  # 3 steps of 128 keys
+        ("ragged_rows", 1, 4, 2, 96, 192, 128, bf16, True, 32, 64),  # sq not a multiple of 64 rows
+        ("f32_hd64", 2, 8, 2, 384, 384, 64, f32, False, 128, 64),
     ]
+    ptxas = _build.ptxas("flash_attention")
     entry = summary["flash_attention"]
-    for name, b, h, hkv, sq, skv, hd, dtype, causal in cases:
+    for name, b, h, hkv, sq, skv, hd, dtype, causal, bq, bk in cases:
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for shape in ((b, h, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd)))
-        got = fa.flash_attention(q, k, v, causal=causal)
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        kw = {"causal": causal, "block_q": bq, "block_k": bk}
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
         sync(dev)
         row = {"phase": "kernels", "kernel": "flash_attention", "case": name, "q": [b, h, sq, hd],
-               "kv": [b, hkv, skv, hd], "dtype": str(dtype), "causal": causal, **within_tol(got, want)}
+               "kv": [b, hkv, skv, hd], "dtype": str(dtype), "causal": causal, "block_q": bq, "block_k": bk,
+               "route": fa.kernel_route(dtype, hd, bk), **within_tol(got, want)}
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
         if row["over_bar"]:
             emit(row)
             raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
+        if name in ("main", "f32"):
+            row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
+            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+            ops = 4 * hd * causal_pairs(sq, skv, causal) * b * h
+            row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S, card))
         if name == "main":
-            row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal), flush)
-            row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), flush)
+            row["ptxas"] = ptxas  # both kernels, each instantiation
+            row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
             row["library_ms"] = time_ms(library_attention(q, k, v, causal), flush)
             row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
-            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-            row.update(bound(nbytes, 4 * hd * causal_pairs(sq, skv, causal) * b * h, BF16_TC_OPS_PER_S, card))
+            row["over_library"] = row["ms"] / row["library_ms"]
+            row["over_bound"] = row["ms"] / row["bound_ms"]
+            per_head = k3_tiles(sq, skv, causal, bk)
+            staged = b * h * (per_head["kv_tiles_loaded"] * 2 * 64 * hd + sq * hd) * q.element_size()
+            row["tiles"] = {**per_head, "staged_bytes": staged, "staged_tb_per_s": staged / row["ms"] * 1e-9,
+                            "note": "blocks, kv_tiles_loaded and warp_tiles per (batch, head); staged_bytes: q and every K/V tile the blocks copy in, whole call"}
             entry.update({key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
         emit(row)
 
@@ -452,12 +502,14 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def phase_model_check(dev: torch.device, arch: str, seq: int) -> None:
+def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "model_check") -> None:
     """``arch`` at full width, 2 layers (the CPU run's sake), bf16: the port
     on the card against the same model and weights on the CPU, prefill of
     ``seq`` tokens then 4 forced decode steps, logits and every cache entry
-    (k/v of attention blocks, the ssm state and conv window of SSD blocks)."""
+    (k/v of attention blocks, the ssm state and conv window of SSD blocks).
+    The card's prefill launches one kernel a layer (K3 or K4), counted."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
 
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
@@ -481,7 +533,9 @@ def phase_model_check(dev: torch.device, arch: str, seq: int) -> None:
     with torch.inference_mode():
         params = model.init(seed=0, device=dev)
         host_params = _tree(lambda t: t.cpu(), params)
+        before = flash_attention.flash_attention.launches + ssd_scan.ssd_scan.launches
         logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, seq_cap=s + steps)
+        launches = flash_attention.flash_attention.launches + ssd_scan.ssd_scan.launches - before
         want_logits, want_cache = model.prefill(host_params, {"tokens": tokens}, seq_cap=s + steps)
         # the padded vocab columns hold -2**30 on both sides: leave them out of "largest value"
         note("prefill_logits", logits[:, :cfg.vocab_size], want_logits[:, :cfg.vocab_size])
@@ -491,13 +545,15 @@ def phase_model_check(dev: torch.device, arch: str, seq: int) -> None:
             want_logits, want_cache = model.decode_step(host_params, want_cache, forced[t], s + t)
             note("decode_logits", logits[:, :cfg.vocab_size], want_logits[:, :cfg.vocab_size])
         caches("final", cache, want_cache)
-    emit({"phase": "model_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype,
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype, "prefill_launches": launches,
           "max_rel_err_vs_cpu": worst, "bar": f"max |card - cpu| <= {MODEL_REL} * max |cpu|",
           "seconds": time.monotonic() - t0})
     over = {k: v for k, v in worst.items() if v > MODEL_REL}
     if over:
-        raise AssertionError(f"model_check {arch} over the bar: {over}")
+        raise AssertionError(f"{phase} {arch} over the bar: {over}")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"{phase} {arch}: the prefill launched {launches} kernels for {cfg.num_layers} layers")
 
 
 def serve_prompts(n: int) -> list[str]:
@@ -510,10 +566,30 @@ def serve_prompts(n: int) -> list[str]:
     return out
 
 
-def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str) -> None:
+def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's busy time (the
+    sum of its kernels' times), the named kernel's share, and the top five."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = [e for e in on_card if kernel_symbol in e.key]
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    return {"device_busy_ms": sum(e.self_device_time_total for e in on_card) / 1e3,
+            "kernel_ms": sum(e.self_device_time_total for e in mine) / 1e3,
+            "kernel_launches": sum(e.count for e in mine), "device_launches": sum(e.count for e in on_card),
+            "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str) -> None:
     """The serving path at full width and depth: ``BatchServer`` on ``arch``,
     seed-initialized on the card, two prefill batches; ``kernel`` is the one
-    its prefill launches once a layer."""
+    its prefill launches once a layer (``kernel_symbol`` in its CUDA name).
+    Each step's host time to enqueue is kept beside its time to finish, and
+    one more prefill and decode step run under the profiler."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
@@ -525,14 +601,16 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str) -> Non
     params = model.init(seed=0, device=dev)
     server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                          max_new=SERVE_NEW, device=dev)
-    times: dict[str, list[float]] = {"prefill": [], "decode": []}
+    times: dict[str, list[float]] = {"prefill": [], "decode": [], "prefill_enqueue": [], "decode_enqueue": []}
     finite = []
+    prefill_step, decode_step = server.prefill, server.decode
 
     def timed(fn, key):
         def run(*args, **kwargs):
             sync(dev)
             t0 = time.perf_counter()
             logits, cache = fn(*args, **kwargs)
+            times[key + "_enqueue"].append((time.perf_counter() - t0) * 1e3)
             sync(dev)
             times[key].append((time.perf_counter() - t0) * 1e3)
             finite.append(bool(torch.isfinite(logits).all()))
@@ -548,6 +626,15 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str) -> Non
     wall = time.monotonic() - t0
     launches = wrapper.launches
     batches = -(-SERVE_PROMPTS // SERVE_BATCH)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=torch.Generator().manual_seed(5))
+    held = {}
+
+    def prefill_once():
+        held["logits"], held["cache"] = prefill_step(params, {"tokens": tokens}, seq_cap=SERVE_PROMPT + SERVE_NEW)
+
+    prefill_trace = trace_step(dev, prefill_once, kernel_symbol)
+    cur = held["logits"].argmax(dim=-1, keepdim=True)
+    decode_trace = trace_step(dev, lambda: decode_step(params, held["cache"], cur, SERVE_PROMPT), kernel_symbol)
     param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     cache_bytes = sum(
         math.prod(shape) * dt.itemsize
@@ -561,7 +648,11 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str) -> Non
           "kernel": kernel, "launches": launches, "results": len(results),
           "tokens_per_result": sorted({len(r.token_ids) for r in results}), "all_logits_finite": all(finite),
           "reading": "the timings and bytes below are readings, not gates",
-          "prefill_ms_per_batch": times["prefill"], "decode_ms_per_token": statistics.median(times["decode"]),
+          "prefill_ms_per_batch": times["prefill"], "prefill_enqueue_ms_per_batch": times["prefill_enqueue"],
+          "decode_ms_per_token": statistics.median(times["decode"]),
+          "decode_enqueue_ms_per_token": statistics.median(times["decode_enqueue"]),
+          "prefill_trace": prefill_trace, "decode_trace": decode_trace,
+          "trace_note": "one more prefill and decode step under torch.profiler: device_busy_ms sums the card's kernel times",
           "generated_tokens_per_s": sum(len(r.token_ids) for r in results) / wall, "wall_s": wall,
           "param_bytes": param_bytes, "cache_bytes": cache_bytes})
     if launches != cfg.num_layers * batches:
@@ -613,6 +704,7 @@ def main() -> int:
         phase_flash(dev, summary, smi)
         phase_ssd(dev, summary, smi)
         phase_model_check(dev, "qwen3-0.6b", 256)
+        phase_model_check(dev, "qwen3-0.6b", 20, "prefill_ragged")  # padded to 64 for K3
         phase_model_check(dev, "mamba2-780m", 512)  # two chunks of 256
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
@@ -620,8 +712,8 @@ def main() -> int:
             emit({"phase": "dataset", "frames": FRAMES, "hw": list(FRAME), "seconds": time.monotonic() - t0})
             phase_main(ds, dev, summary)
             phase_example(ds, dev, summary)
-        phase_serve(dev, summary, "qwen3-0.6b", "flash_attention")
-        phase_serve(dev, summary, "mamba2-780m", "ssd_scan")
+        phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
+        phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_scan_kernel")
     except Exception:
         traceback.print_exc()
         return 1

@@ -8,7 +8,9 @@ slowest file.  A library's file name carries a hash of its source, so an
 edited source is rebuilt and a stale library is never loaded.
 
 Every library also exports ``const char* error_string(int)`` so that a
-launch function's ``cudaError_t`` can be raised with its message.
+launch function's ``cudaError_t`` can be raised with its message.  The
+compiler's output is kept beside each library (``<name>-<hash>.log``);
+``ptxas(name)`` reads each kernel's registers and spills from it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -79,6 +82,7 @@ def _build_locked() -> tuple[float, str]:
     for target, tmp, proc in procs:
         out, _ = proc.communicate()
         logs.append(f"{target.name}:\n{out}")
+        target.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
             failures.append(f"{target.name}: nvcc exited {proc.returncode}\n{out}")
             tmp.unlink(missing_ok=True)
@@ -100,6 +104,44 @@ def library(name: str) -> ctypes.CDLL:
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_ZN..2tc10fa_tc_bf16ILi128ELi2EE...`` → ``fa_tc_bf16<128,2>``: the
+    last name of a nested mangled name and its integer template arguments."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled
+    name = mangled
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group(0))
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    if args is None:
+        return name
+    return name + "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+
+
+def ptxas(name: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel in ``csrc/<name>.cu``'s
+    library, from ``ptxas -v``: ``{"kernel<template args>": {"registers",
+    "spill_stores", "spill_loads"}}``; empty if it was not built here."""
+    log = _target(CSRC / f"{name}.cu").with_suffix(".log")
+    out: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in log.read_text().splitlines() if log.is_file() else ():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = _kernel_name(m.group(1))
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

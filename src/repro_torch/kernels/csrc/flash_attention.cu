@@ -6,29 +6,47 @@
 //
 // Bound: bytes at the serving shapes.  One call reads q, k and v once and
 // writes o once; at q (8,16,512,128), k and v (8,8,512,128) in bf16 that is
-// 50 MB, 0.015 ms at 3.35 TB/s, against ~8.6 GFLOP of causal work, 0.009 ms
-// on the bf16 tensor cores.  This first kernel does its products on the
-// f32 CUDA cores, out of shared memory, so it is far from that bound; the
-// tensor-core version (wgmma over TMA-staged tiles) is later work.
+// 50.3 MB, 0.0150 ms at 3.35 TB/s, against 8.61 GFLOP of causal work,
+// 0.0087 ms on the bf16 tensor cores and 0.13 ms on the f32 CUDA cores.
+// So the products must run on the tensor cores, and the kernel must read
+// each K and V tile from device memory once per 64 query rows while the
+// previous tile is multiplied.
 //
-// Design: one block per (b, head, 8 query rows), one warp per query row.
-// The block stages keys in chunks of 64 rows, widened to f32, in shared
-// memory that every row of the block reuses.  A key tile is the wrapper's
-// block_k, as in the Pallas grid, and the softmax keeps its semantics:
-//   pass 1: each lane takes whole keys and writes s = (q . k) * sm_scale,
-//           NEG_INF (-2**30, finite) where k > q's position, to the row's
-//           score buffer; the warp takes the tile's max;
-//   then:   m_new = max(m, tile max), corr = exp(m - m_new),
-//           p = exp(s - m_new), l = l * corr + sum(p), and p is rounded
-//           to v's dtype (bf16 here) before it meets v, as in the body;
-//   pass 2: each lane owns hd/32 consecutive output dims and accumulates
-//           pv = sum_k p_k v_k in f32; acc = acc * corr + pv.
-// The output is acc / max(l, 1e-20), rounded to q's dtype.  The tile loop
-// stops at the last tile the block's last row admits; keys past a row's
-// position have p == 0 exactly, so a row can skip them in pass 2 and a
-// tile that is all masked for a row leaves its m, l and acc unchanged, just
-// as the Pallas body's skipped blocks do.  Blocks run the heaviest query
-// tiles (the last ones, under the causal mask) first.
+// Two kernels, routed by dtype:
+//
+// fa_tc_bf16 (bf16 q, k, v): FlashAttention-2's shape on mma.sync.
+//   - A block of 4 warps owns 64 query rows of one (batch, head), 16 rows a
+//     warp; the kv head is head / (H / Hkv), read in place (GQA without
+//     repeating K or V).  Blocks run the heaviest causal query tiles first.
+//   - S = Q.K^T and O += P.V are mma.sync.m16n8k16 with bf16 operands and
+//     f32 accumulators.  Fragments come from shared memory by ldmatrix
+//     (.trans for V); the Q fragments stay in registers for the whole key
+//     loop.  The P fragment of P.V is the S accumulator rounded to bf16 in
+//     registers: exactly the body's p.astype(v.dtype).
+//   - K and V tiles of 64 keys go through a ring of 4 shared-memory slots
+//     filled by cp.async in the order they are used (the K sub-tiles of a
+//     softmax step, then its V sub-tiles), three tiles ahead of the one
+//     being multiplied.  Rows are padded by 16 bytes, so the 8 rows an
+//     ldmatrix phase reads fall in 8 distinct 16-byte bank groups.  At hd
+//     128: 17 KB of Q and 68 KB of ring, two blocks an SM.
+//   - The softmax step is the wrapper's block_k (64 or 128 keys, one or two
+//     64-key sub-tiles whose scores are all in registers before the step's
+//     max is taken), with the body's arithmetic in f32: s = (q.k) * sm_scale,
+//     NEG_INF (-2**30, finite) above the diagonal, m_new = max(m, max s),
+//     corr = exp(m - m_new), p = exp(s - m_new), l = l * corr + sum(p),
+//     acc = acc * corr + p_bf16 . v; exp(x) is ex2.approx(x * log2(e)) on
+//     the SFU (2 ulp).  Sub-tiles wholly above a warp's
+//     diagonal are neither multiplied nor exponentiated (their p is 0), and
+//     those above the block's are not loaded.  Output acc / max(l, 1e-20),
+//     staged through shared memory for 16-byte stores.  Rows past sq are
+//     zero in Q and never stored, so sq need not be a multiple of 64.
+//
+// fa_cuda_f32 (f32 q, k, v): the first design, on the f32 CUDA cores (the
+//   tensor cores' TF32 cannot hold the 2e-5 f32 bar).  One block per (b,
+//   head, 8 query rows), one warp per row; keys staged 64 rows at a time
+//   in shared memory; per block_k tile, pass 1 writes the row's scores and
+//   takes their max, then the softmax step, then pass 2 accumulates p.v
+//   with each lane owning hd/32 output dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,30 +54,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // query rows per block, one warp each
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 64;  // keys staged in shared memory at a time
-constexpr int kPad = 4;  // floats after each staged row: float4 reads by lane = key hit distinct banks
 constexpr float kNegInf = -1073741824.0f;  // -2**30, the body's NEG_INF
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// p as v's dtype would hold it: the body's p.astype(v.dtype)
-__device__ __forceinline__ float in_dtype(float p, const float*) { return p; }
-__device__ __forceinline__ float in_dtype(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
-
-__device__ __forceinline__ void store(float* o, float x) { *o = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* o, float x) { *o = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -70,24 +65,375 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy n rows of hd contiguous elements into shared memory as f32, one
-// row every `stride` floats.  hd is a multiple of 4 and src 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int n, int hd, int stride) {
+// ---------------------------------------------------------------------------
+// fa_tc_bf16: bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kRows = 64;  // query rows per block
+constexpr int kWarps = 4;  // 16 rows each
+constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 64;  // keys per staged K or V tile
+constexpr int kSlots = 4;  // the K/V ring
+constexpr int kPad = 8;    // bf16 after each staged row (16 bytes)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half: the lower k index
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2**x on the SFU (ex2.approx, 2 ulp; a subnormal result flushes to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): a C tile's
+// c[0], c[1] are row g, columns 2t and 2t+1; c[2], c[3] the same columns of
+// row g+8.  So the S tile of keys 16kk..16kk+15 (n8 blocks 2kk and 2kk+1)
+// is, rounded to bf16, the A fragment of P.V for those keys.
+template <int HD, int NSUB>  // NSUB = block_k / 64
+__global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
+    const __nv_bfloat16* __restrict__ q,  // (b, h, sq, hd)
+    const __nv_bfloat16* __restrict__ k,  // (b, hkv, skv, hd)
+    const __nv_bfloat16* __restrict__ v,  // (b, hkv, skv, hd)
+    __nv_bfloat16* __restrict__ o,        // (b, h, sq, hd)
+    int h, int hkv, int sq, int skv, float sm_scale, int causal) {
+  constexpr int STRIDE = HD + kPad;  // bf16 per staged row
+  constexpr int TILE = kKeys * STRIDE;
+  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
+  constexpr int KSTEPS = HD / 16;  // k16 steps of q.k
+  constexpr int SBLK = kKeys / 8;  // n8 blocks of a sub-tile's scores
+  constexpr int DBLK = HD / 8;     // n8 blocks of the output
+  constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2**(x log2(e))
+  extern __shared__ uint4 smem_u4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // (64, STRIDE); the output's staging at the end
+  __nv_bfloat16* ring = qs + kRows * STRIDE;                        // kSlots x (64, STRIDE)
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int kvh = head / (h / hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int q_rows = min(kRows, sq - q0);
+  const int q_offset = skv - sq;  // row i sits at key position i + q_offset
+  const int block_last = q0 + q_rows - 1 + q_offset;
+  const int n_sub_all = skv / kKeys;
+  const int n_sub = causal ? min(n_sub_all, block_last / kKeys + 1) : n_sub_all;
+  const int n_steps = (n_sub + NSUB - 1) / NSUB;
+  const int n_tiles = n_steps * 2 * NSUB;  // per step: its K sub-tiles, then its V sub-tiles
+
+  const __nv_bfloat16* qb = q + ((static_cast<int64_t>(b) * h + head) * sq + q0) * HD;
+  const int64_t kv_base = (static_cast<int64_t>(b) * hkv + kvh) * skv * HD;
+  const __nv_bfloat16* kb = k + kv_base;
+  const __nv_bfloat16* vb = v + kv_base;
+
+  // Tile i of the sequence into slot i % kSlots; one commit group per call,
+  // empty past the end and for sub-tiles above the block's diagonal.
+  auto load_tile = [&](int i) {
+    if (i < n_tiles) {
+      const int r = i % (2 * NSUB);
+      const int sub = (i / (2 * NSUB)) * NSUB + r % NSUB;
+      if (sub < n_sub) {
+        const __nv_bfloat16* src = (r < NSUB ? kb : vb) + static_cast<int64_t>(sub) * kKeys * HD;
+        __nv_bfloat16* dst = ring + (i % kSlots) * TILE;
+        for (int c = threadIdx.x; c < kKeys * CHUNKS; c += kThreads) {
+          const int row = c / CHUNKS;
+          const int col = (c % CHUNKS) * 8;
+          cp_async16(smem_addr(dst + row * STRIDE + col), src + static_cast<int64_t>(row) * HD + col);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c = threadIdx.x; c < kRows * CHUNKS; c += kThreads) {
+    const int row = c / CHUNKS;
+    const int col = (c % CHUNKS) * 8;
+    __nv_bfloat16* dst = qs + row * STRIDE + col;
+    if (row < q_rows)
+      cp_async16(smem_addr(dst), qb + static_cast<int64_t>(row) * HD + col);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int i = 0; i < kSlots - 1; ++i) load_tile(i);  // Q rides in tile 0's group
+
+  // This thread's rows: g and g + 8 of the warp's 16.
+  const int warp_row = q0 + warp * 16;
+  const int warp_first = warp_row + q_offset;
+  const int warp_last = warp_first + 15;
+  const int pos0 = warp_first + g;
+  const int pos1 = pos0 + 8;
+
+  uint32_t qf[KSTEPS][4];
+  float acc[DBLK][4];
+#pragma unroll
+  for (int d = 0; d < DBLK; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m_row[2] = {kNegInf, kNegInf};
+  float l_row[2] = {0.f, 0.f};  // this thread's share of the row sums; the quad adds them up at the end
+  float s[NSUB][SBLK][4];
+  bool live[NSUB];
+
+  // Wait for tile i, let every warp be done with tile i - 1, and reuse its
+  // slot for tile i + kSlots - 1.
+  auto next_tile = [&](int i) -> const __nv_bfloat16* {
+    cp_async_wait<kSlots - 2>();
+    __syncthreads();
+    load_tile(i + kSlots - 1);
+    return ring + (i % kSlots) * TILE;
+  };
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int tile0 = step * 2 * NSUB;
+    // scores of the step's sub-tiles
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      const __nv_bfloat16* ks = next_tile(tile0 + j);
+      if (tile0 + j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldmatrix_x4(qf[kk], smem_addr(qs + (warp * 16 + lane % 16) * STRIDE + kk * 16 + (lane / 16) * 8));
+      }
+      const int sub = step * NSUB + j;
+      const int k0 = sub * kKeys;
+      live[j] = sub < n_sub && (!causal || k0 <= warp_last);
+      if (!live[j]) continue;
+#pragma unroll
+      for (int nb = 0; nb < SBLK; ++nb) s[j][nb][0] = s[j][nb][1] = s[j][nb][2] = s[j][nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < SBLK / 2; ++np) {  // keys 16np .. 16np+15
+          uint32_t bf[4];
+          const int key = np * 16 + lane % 8 + (lane / 16) * 8;
+          const int col = kk * 16 + ((lane / 8) % 2) * 8;
+          ldmatrix_x4(bf, smem_addr(ks + key * STRIDE + col));
+          mma(s[j][2 * np], qf[kk], bf[0], bf[1]);
+          mma(s[j][2 * np + 1], qf[kk], bf[2], bf[3]);
+        }
+      }
+      const bool diagonal = causal && k0 + kKeys - 1 > warp_first;
+#pragma unroll
+      for (int nb = 0; nb < SBLK; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][nb][e] * sm_scale;
+          if (diagonal && k0 + nb * 8 + 2 * t + (e % 2) > (e < 2 ? pos0 : pos1)) x = kNegInf;
+          s[j][nb][e] = x;
+        }
+      }
+    }
+
+    // the step's softmax, rows g and g + 8
+    float m_new[2] = {m_row[0], m_row[1]};
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      if (!live[j]) continue;  // all NEG_INF: the max is m's or another sub-tile's
+#pragma unroll
+      for (int nb = 0; nb < SBLK; ++nb) {
+        m_new[0] = fmaxf(m_new[0], fmaxf(s[j][nb][0], s[j][nb][1]));
+        m_new[1] = fmaxf(m_new[1], fmaxf(s[j][nb][2], s[j][nb][3]));
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+      corr[r] = exp2_approx((m_row[r] - m_new[r]) * kLog2e);
+      m_row[r] = m_new[r];
+      l_row[r] *= corr[r];
+    }
+#pragma unroll
+    for (int d = 0; d < DBLK; ++d) {
+      acc[d][0] *= corr[0];
+      acc[d][1] *= corr[0];
+      acc[d][2] *= corr[1];
+      acc[d][3] *= corr[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      if (!live[j]) continue;
+#pragma unroll
+      for (int nb = 0; nb < SBLK; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx((s[j][nb][e] - m_new[e / 2]) * kLog2e);
+          l_row[e / 2] += p;
+          s[j][nb][e] = p;
+        }
+      }
+    }
+
+    // acc += p . v, p rounded to bf16
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      const __nv_bfloat16* vs = next_tile(tile0 + NSUB + j);
+      if (!live[j]) continue;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[j][2 * kk][0], s[j][2 * kk][1]),
+            pack_bf16(s[j][2 * kk][2], s[j][2 * kk][3]),
+            pack_bf16(s[j][2 * kk + 1][0], s[j][2 * kk + 1][1]),
+            pack_bf16(s[j][2 * kk + 1][2], s[j][2 * kk + 1][3]),
+        };
+#pragma unroll
+        for (int dp = 0; dp < DBLK / 2; ++dp) {  // output dims 16dp .. 16dp+15
+          uint32_t bf[4];
+          const int key = kk * 16 + lane % 8 + ((lane / 8) % 2) * 8;
+          const int col = dp * 16 + (lane / 16) * 8;
+          ldmatrix_x4_trans(bf, smem_addr(vs + key * STRIDE + col));
+          mma(acc[2 * dp], pa, bf[0], bf[1]);
+          mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // acc / max(l, 1e-20), staged in the warp's own 16 rows of qs (no other
+  // warp reads them after the Q fragments are loaded), then 16-byte stores.
+  float l_sum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_sum[r] = l_row[r];
+    l_sum[r] += __shfl_xor_sync(0xffffffffu, l_sum[r], 1);
+    l_sum[r] += __shfl_xor_sync(0xffffffffu, l_sum[r], 2);
+    l_sum[r] = fmaxf(l_sum[r], 1e-20f);
+  }
+  __nv_bfloat16* os = qs + warp * 16 * STRIDE;
+#pragma unroll
+  for (int d = 0; d < DBLK; ++d) {
+    *reinterpret_cast<__nv_bfloat162*>(os + g * STRIDE + d * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[d][0] / l_sum[0], acc[d][1] / l_sum[0]);
+    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * STRIDE + d * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[d][2] / l_sum[1], acc[d][3] / l_sum[1]);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = o + ((static_cast<int64_t>(b) * h + head) * sq + warp_row) * HD;
+  for (int c = lane; c < 16 * CHUNKS; c += 32) {
+    const int row = c / CHUNKS;
+    const int col = (c % CHUNKS) * 8;
+    if (warp * 16 + row < q_rows)
+      *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(row) * HD + col) =
+          *reinterpret_cast<const uint4*>(os + row * STRIDE + col);
+  }
+}
+
+template <int HD, int NSUB>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
+                   int skv, float sm_scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (kRows + kSlots * kKeys) * (HD + kPad);
+  auto kernel = fa_tc_bf16<HD, NSUB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((sq + kRows - 1) / kRows, h, b);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), h, hkv, sq, skv, sm_scale,
+      causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bk(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
+                      int skv, int block_k, float sm_scale, int causal, cudaStream_t s) {
+  switch (block_k) {
+    case 64: return launch<HD, 1>(q, k, v, o, b, h, hkv, sq, skv, sm_scale, causal, s);
+    case 128: return launch<HD, 2>(q, k, v, o, b, h, hkv, sq, skv, sm_scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
+                      int skv, int hd, int block_k, float sm_scale, int causal, cudaStream_t s) {
+  switch (hd) {
+    case 32: return launch_bk<32>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 64: return launch_bk<64>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 128: return launch_bk<128>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// fa_cuda_f32: f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kWarps = 8;  // query rows per block, one warp each
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 64;  // keys staged in shared memory at a time
+constexpr int kPad = 4;  // floats after each staged row: float4 reads by lane = key hit distinct banks
+
+// Copy n rows of hd contiguous floats into shared memory, one row every
+// `stride` floats.  hd is a multiple of 4 and src 16-byte aligned.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, int hd, int stride) {
   const int quads = hd / 4;
   for (int i = threadIdx.x; i < n * quads; i += kThreads) {
     const int r = i / quads;
     const int c = (i - r * quads) * 4;
-    *reinterpret_cast<float4*>(dst + r * stride + c) = load4(src + static_cast<int64_t>(r) * hd + c);
+    *reinterpret_cast<float4*>(dst + r * stride + c) =
+        *reinterpret_cast<const float4*>(src + static_cast<int64_t>(r) * hd + c);
   }
 }
 
-template <typename T, int NPL>  // NPL = output dims per lane = hd / 32
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q,  // (b, h, sq, hd)
-    const T* __restrict__ k,  // (b, hkv, skv, hd)
-    const T* __restrict__ v,  // (b, hkv, skv, hd)
-    T* __restrict__ o,        // (b, h, sq, hd)
+template <int NPL>  // NPL = output dims per lane = hd / 32
+__global__ void __launch_bounds__(kThreads) fa_cuda_f32(
+    const float* __restrict__ q,  // (b, h, sq, hd)
+    const float* __restrict__ k,  // (b, hkv, skv, hd)
+    const float* __restrict__ v,  // (b, hkv, skv, hd)
+    float* __restrict__ o,        // (b, h, sq, hd)
     int h, int hkv, int sq, int skv, int block_k, int chunk, float sm_scale, int causal) {
   constexpr int HD = NPL * 32;
   constexpr int KV_STRIDE = HD + kPad;
@@ -111,8 +457,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   const int64_t q_base = (static_cast<int64_t>(b) * h + head) * sq * HD;
   const int64_t kv_base = (static_cast<int64_t>(b) * hkv + kvh) * skv * HD;
-  const T* kb = k + kv_base;
-  const T* vb = v + kv_base;
+  const float* kb = k + kv_base;
+  const float* vb = v + kv_base;
 
   stage(qs, q + q_base + static_cast<int64_t>(q0) * HD, q_rows, HD, HD);
   const float* my_q = qs + warp * HD;
@@ -160,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         local_max = fmaxf(local_max, s);
       }
     }
-    // the tile's softmax step
+    // the tile's softmax step (p stays f32: v's dtype)
     float corr = 1.f;
     if (live) {
       __syncwarp();
@@ -170,7 +516,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       for (int j = lane; j < block_k; j += 32) {
         const float p = expf(my_s[j] - m_new);
         local_sum += p;
-        my_s[j] = in_dtype(p, v);
+        my_s[j] = p;
       }
       l = l * corr + warp_sum(local_sum);
       m = m_new;
@@ -200,58 +546,57 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
   if (!live) return;
   const float denom = fmaxf(l, 1e-20f);
-  T* orow = o + q_base + static_cast<int64_t>(row) * HD + lane * NPL;
+  float* orow = o + q_base + static_cast<int64_t>(row) * HD + lane * NPL;
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) store(orow + i, acc[i] / denom);
+  for (int i = 0; i < NPL; ++i) orow[i] = acc[i] / denom;
 }
 
-template <typename T, int NPL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv,
-                   int sq, int skv, int block_k, float sm_scale, int causal, cudaStream_t stream) {
+template <int NPL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
+                   int skv, int block_k, float sm_scale, int causal, cudaStream_t stream) {
   const int hd = NPL * 32;
   const int chunk = block_k % kChunk == 0 ? kChunk : block_k;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kWarps) * hd + static_cast<size_t>(kWarps) * block_k +
                        static_cast<size_t>(chunk) * (hd + kPad));
-  auto kernel = flash_attention_kernel<T, NPL>;
+  auto kernel = fa_cuda_f32<NPL>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((sq + kWarps - 1) / kWarps, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), h, hkv, sq, skv, block_k, chunk, sm_scale, causal);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                           static_cast<const float*>(v), static_cast<float*>(o), h, hkv, sq,
+                                           skv, block_k, chunk, sm_scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv,
-                      int sq, int skv, int hd, int block_k, float sm_scale, int causal,
-                      cudaStream_t s) {
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
+                      int skv, int hd, int block_k, float sm_scale, int causal, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 1>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 64: return launch<T, 2>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 128: return launch<T, 4>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 256: return launch<T, 8>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 32: return launch<1>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 64: return launch<2>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 128: return launch<4>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 256: return launch<8>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace f32
+
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32 (q, k, v and o alike).  hd is one of
-// 32, 64, 128, 256; h % hkv == 0; sq <= skv when causal; skv % block_k == 0.
-// Returns the launch's cudaError_t (0 = launched).
-extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, int dtype, int b,
-                         int h, int hkv, int sq, int skv, int hd, int block_k, float sm_scale,
-                         int causal, void* stream) {
+// dtype 0 = bfloat16: fa_tc_bf16, hd 32, 64 or 128, block_k 64 or 128.
+// dtype 1 = float32: fa_cuda_f32, hd 32, 64, 128 or 256, any block_k.
+// q, k, v and o alike; h % hkv == 0; sq <= skv when causal; skv % block_k
+// == 0.  Returns the launch's cudaError_t (0 = launched).
+extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, int dtype, int b, int h,
+                         int hkv, int sq, int skv, int hd, int block_k, float sm_scale, int causal,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
-  if (dtype == 1)
-    return launch_hd<float>(q, k, v, o, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
+  if (dtype == 0) return tc::launch_hd(q, k, v, o, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
+  if (dtype == 1) return f32::launch_hd(q, k, v, o, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

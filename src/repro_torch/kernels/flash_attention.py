@@ -13,9 +13,12 @@ f32, masked with the finite ``NEG_INF = -2**30``; per tile
 ``acc / max(l, 1e-20)`` at the end.
 
 ``flash_attention`` dispatches on the device of q: a CPU tensor goes
-through ``flash_attention_plain`` beside it, a CUDA tensor launches the
-hand-written kernel in ``csrc/flash_attention.cu`` (or raises), and each
-launch adds one to ``flash_attention.launches``.
+through ``flash_attention_plain`` beside it, a CUDA tensor launches one of
+the two hand-written kernels in ``csrc/flash_attention.cu`` (or raises),
+and each launch of either adds one to ``flash_attention.launches``.  The
+dtype picks the kernel (``kernel_route``): bf16 runs on the tensor cores
+(head dim 32, 64 or 128; ``block_k`` 64 or 128), f32 on the CUDA cores
+(head dim 32, 64, 128 or 256; any ``block_k``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from . import _build
 NEG_INF = -(2.0**30)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+TC_HEAD_DIMS = (32, 64, 128)  # bf16: Q fragments and the f32 output of 16 rows stay in registers
+TC_BLOCK_KS = (64, 128)  # bf16: the softmax step is one or two 64-key tiles
+F32_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> None:
@@ -51,6 +56,24 @@ def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> None:
         raise TypeError(f"q, k and v must all be bfloat16 or all float32; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k and v lie on {q.device}, {k.device}, {v.device}")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
+    """The CUDA kernel that ``flash_attention`` launches for a CUDA tensor:
+    ``"tc_bf16"`` (bf16 on the tensor cores) or ``"cuda_f32"`` (f32 on the
+    CUDA cores).  Raises ``ValueError`` for a head dim or ``block_k`` that
+    the kernel does not take, ``TypeError`` for another dtype."""
+    if dtype == torch.bfloat16:
+        if head_dim not in TC_HEAD_DIMS:
+            raise ValueError(f"flash_attention: the bf16 kernel takes head_dim in {TC_HEAD_DIMS}; got {head_dim}")
+        if block_k not in TC_BLOCK_KS:
+            raise ValueError(f"flash_attention: the bf16 kernel takes block_k in {TC_BLOCK_KS}; got {block_k}")
+        return "tc_bf16"
+    if dtype == torch.float32:
+        if head_dim not in F32_HEAD_DIMS:
+            raise ValueError(f"flash_attention: the f32 kernel takes head_dim in {F32_HEAD_DIMS}; got {head_dim}")
+        return "cuda_f32"
+    raise TypeError(f"flash_attention: no CUDA kernel for {dtype}")
 
 
 def flash_attention_plain(
@@ -108,7 +131,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Returns (B, H, Sq, hd) in q's dtype.  Raises ``ValueError`` where the
     reference asserts: ``H % Hkv``, causal with ``Sq > Skv``, and ``Sq`` or
-    ``Skv`` not a multiple of ``block_q`` or ``block_k``."""
+    ``Skv`` not a multiple of ``block_q`` or ``block_k``; on a CUDA device
+    also where ``kernel_route`` does."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k
@@ -118,8 +142,7 @@ def flash_attention(
     _check(q, k, v, causal, block_q, block_k)
     b, h, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if hd not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head_dim in {_KERNEL_HEAD_DIMS}; got {hd}")
+    kernel_route(q.dtype, hd, block_k)
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: batch {b} and heads {h} must each be at most 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -127,9 +150,9 @@ def flash_attention(
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
     if sm_scale is None:
         sm_scale = 1.0 / (hd**0.5)
+    if q.numel() == 0 or skv == 0:
+        return torch.zeros_like(q)  # the plain version's acc / 1e-20 over no keys
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

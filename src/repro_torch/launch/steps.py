@@ -28,14 +28,15 @@ class StepBundle:
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, device=None) -> StepBundle:
-    """``fn(params, batch, seq_cap=None)`` → (logits, cache of capacity seq_cap)."""
+    """``fn(params, batch, seq_cap=None)`` → (logits, cache of capacity seq_cap);
+    ``batch`` holds ``tokens`` and, optionally, ``positions``."""
     dev = resolve_device(device, "build_prefill_step")
     model = Model(cfg)
 
     @torch.inference_mode()
     def prefill(params, batch, seq_cap=None):
-        tokens = torch.as_tensor(batch["tokens"]).to(dev)
-        return model.prefill(params, {"tokens": tokens}, seq_cap)
+        inputs = {name: torch.as_tensor(batch[name]).to(dev) for name in ("tokens", "positions") if name in batch}
+        return model.prefill(params, inputs, seq_cap)
 
     return StepBundle(model, shape, prefill)
 

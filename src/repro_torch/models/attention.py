@@ -23,7 +23,7 @@ from .layers import apply_rope, dtype_of, rms_norm_simple
 from .params import ParamDef
 
 NEG_INF = -(2.0**30)  # large finite negative: avoids NaN from (-inf) - (-inf)
-FLASH_BLOCKS = (128, 64, 32, 16, 8)  # prefill tile sizes, the largest that divides S wins
+FLASH_PAD = 64  # the prompt is padded to a multiple of this for the kernel's tiles
 
 
 def attn_defs(cfg: ModelConfig) -> dict:
@@ -61,25 +61,26 @@ def _plain_attention(q, k, v, q_pos, kv_pos, q_seg, kv_seg, scale):
     return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
 
 
-def _flash_block(s: int) -> int:
-    for blk in FLASH_BLOCKS:
-        if s % blk == 0:
-            return blk
-    raise ValueError(f"prefill length {s} is not a multiple of any of {FLASH_BLOCKS}")
-
-
 def _causal_flash(q, k, v):
     """q: (B,S,K,G,hd), k/v: (B,S,K,hd) → (B,S,K·G,hd) through the kernel.
 
     Query head ``kh·G + g`` maps to kv head ``kh``, the kernel's
-    ``h // group``; k and v go over as (B,K,S,hd)."""
+    ``h // group``; k and v go over as (B,K,S,hd).  Any S: q, k and v are
+    padded with zeros at the end to a multiple of 64, with tile 128 where
+    that divides the padded length and 64 otherwise, and the output is cut
+    back to S.  The padded keys come after every real query, so the causal
+    mask already hides them; the padded query rows are dropped."""
     b, s, kh, g, hd = q.shape
-    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, s, hd).contiguous()
-    kt = k.permute(0, 2, 1, 3).contiguous()
-    vt = v.permute(0, 2, 1, 3).contiguous()
-    blk = _flash_block(s)
+    pad = -s % FLASH_PAD
+    blk = 128 if (s + pad) % 128 == 0 else 64
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, s, hd)
+    kt = k.permute(0, 2, 1, 3)
+    vt = v.permute(0, 2, 1, 3)
+    if pad:
+        qh, kt, vt = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (qh, kt, vt))
+    qh, kt, vt = qh.contiguous(), kt.contiguous(), vt.contiguous()
     o = ops.flash_attention(qh, kt, vt, causal=True, block_q=blk, block_k=blk)
-    return o.transpose(1, 2)
+    return o[:, :, :s].transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +118,10 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
-    """Causal attention over the prompt x (B,S,D) at ``positions`` (arange);
-    writes the layer's k and v into ``cache["k"|"v"][:, :S]`` (B,S_cap,K,hd)."""
+    """Causal attention over the prompt x (B,S,D) at ``positions`` (B,S),
+    which RoPE reads; the kernel masks by index, so each row's positions
+    must strictly increase (``Model.prefill`` checks).  Writes the layer's
+    k and v into ``cache["k"|"v"][:, :S]`` (B,S_cap,K,hd)."""
     q, k, v = _qkv(cfg, p, x, positions)
     s = x.shape[1]
     cache["k"][:, :s] = k

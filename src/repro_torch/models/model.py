@@ -39,6 +39,7 @@ class Model:
         for kind, is_moe in cfg.layer_plan():
             tf.check_supported(kind, is_moe)
         self.cfg = cfg
+        self._has_attention = any(kind == "attn" for kind, _ in cfg.layer_plan())
 
     # ------------------------------------------------------------------
     # parameters
@@ -102,6 +103,12 @@ class Model:
     def prefill(self, params: dict, batch: dict, seq_cap: int | None = None) -> tuple[torch.Tensor, list]:
         """batch["tokens"] (B, S) → (logits (B, padded_vocab), cache).
 
+        ``batch["positions"]`` (B, S), default ``arange(S)`` in every row, are
+        the positions RoPE rotates by.  Attention masks by index, which is
+        the reference's position mask only where each row's positions
+        strictly increase; for a model with attention, other positions raise
+        ``ValueError``.
+
         An attention cache has capacity ``seq_cap`` (default S) and holds the
         prompt's k/v in slots 0..S-1; decode steps write the slots after
         them.  An SSD cache holds the state after the prompt."""
@@ -109,13 +116,27 @@ class Model:
         tokens = batch["tokens"]
         x = apply_embed(cfg, params["embed"], tokens)
         b, s = x.shape[:2]
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        else:
+            positions = self._check_positions(torch.as_tensor(positions, device=x.device), b, s)
         caches = self.new_cache(b, s if seq_cap is None else seq_cap, x.device)
         for seg_params, seg_cache, segment in zip(params["segments"], caches, cfg.segments()):
             x = tf.segment_prefill(cfg, segment, seg_params, seg_cache, x, positions)
         h = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
         logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
         return self._shape_logits(logits), caches
+
+    def _check_positions(self, positions: torch.Tensor, b: int, s: int) -> torch.Tensor:
+        if tuple(positions.shape) != (b, s):
+            raise ValueError(f"positions must be (B, S) = {(b, s)}; got {tuple(positions.shape)}")
+        if self._has_attention and s > 1 and not bool((positions[:, 1:] > positions[:, :-1]).all()):
+            raise ValueError(
+                "prefill masks attention by index, which equals the position mask only where "
+                "each row's positions strictly increase; got positions that do not"
+            )
+        return positions
 
     def decode_step(
         self, params: dict, caches: list, tokens: torch.Tensor, pos: int

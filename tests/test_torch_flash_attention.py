@@ -113,6 +113,45 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert fa.flash_attention.launches == before
 
 
+@pytest.mark.parametrize(
+    "dtype,hd,block_k,route",
+    [
+        (torch.bfloat16, 128, 128, "tc_bf16"),  # the serving shape
+        (torch.bfloat16, 64, 64, "tc_bf16"),
+        (torch.bfloat16, 32, 128, "tc_bf16"),
+        (torch.float32, 256, 128, "cuda_f32"),
+        (torch.float32, 64, 96, "cuda_f32"),  # the f32 kernel takes any block_k
+    ],
+)
+def test_the_dtype_picks_the_cuda_kernel(dtype, hd, block_k, route):
+    assert fa.kernel_route(dtype, hd, block_k) == route
+
+
+@pytest.mark.parametrize(
+    "hd,block_k,match",
+    [
+        (256, 64, "head_dim"),  # hd 256 stays on the f32 kernel
+        (16, 128, "head_dim"),
+        (80, 64, "head_dim"),
+        (128, 32, "block_k"),
+        (128, 256, "block_k"),
+        (64, 96, "block_k"),
+    ],
+)
+def test_the_cuda_route_raises_for_what_the_bf16_kernel_does_not_take(hd, block_k, match):
+    """The wrapper calls ``kernel_route`` before it launches on a CUDA tensor;
+    on the CPU, where no kernel launches, it raises all the same."""
+    with pytest.raises(ValueError, match=match):
+        fa.kernel_route(torch.bfloat16, hd, block_k)
+
+
+def test_the_cuda_route_raises_for_other_dtypes():
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.kernel_route(torch.float32, 48, 64)
+    with pytest.raises(TypeError):
+        fa.kernel_route(torch.float16, 64, 64)
+
+
 def test_a_tensor_on_neither_cpu_nor_cuda_raises():
     q = torch.empty((1, 2, 8, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA"):

@@ -203,9 +203,77 @@ def test_ssd_cache_spec_holds_state_not_tokens():
     assert {k: (tuple(t.shape), t.dtype) for k, t in cache[0]["blocks"][0].items()} == want[0]["blocks"][0]
 
 
-def test_prefill_length_must_tile_the_kernel():
-    cfg = port_configs.get_smoke_config(ARCH)
-    model = Model(cfg)
+def _f32_pair(ref, arch=ARCH):
+    """The reference model and the port's on the same f32 weights."""
+    ref_cfg, cfg = _configs(ref, "float32", arch)
+    ref_model = ref.Model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    return ref_model, ref_params, Model(cfg), params_from_reference(jax.tree.map(np.asarray, ref_params))
+
+
+@pytest.mark.parametrize("s", [12, 13, 20])
+def test_prefill_takes_any_prompt_length(reference_stack, s):  # noqa: F811
+    """Lengths that are not a multiple of the kernel's tile: q, k and v are
+    padded to 64 for the kernel and the output is cut back."""
+    ref_model, ref_params, model, params = _f32_pair(reference_stack)
+    rng = np.random.default_rng(s)
+    tokens = rng.integers(0, model.cfg.vocab_size, (B, s), dtype=np.int32)
+    forced = rng.integers(0, model.cfg.vocab_size, (B, 1), dtype=np.int32)
+
+    want_logits, want_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, seq_cap=s + 1)
+    _close(logits, want_logits, "float32", f"prefill logits at S={s}")
+    want_cache = [
+        {"blocks": [{name: jnp.pad(x, [(0, 0), (0, 0), (0, 1), (0, 0), (0, 0)]) for name, x in blk.items()}
+                    for blk in seg["blocks"]]}
+        for seg in want_cache
+    ]
+    want_logits, _ = ref_model.decode_step(ref_params, want_cache, jnp.asarray(forced), jnp.int32(s))
+    logits, _ = model.decode_step(params, cache, torch.from_numpy(forced), s)
+    _close(logits, want_logits, "float32", f"decode logits after S={s}")
+
+
+@pytest.mark.parametrize("start,step", [(7, 1), (0, 2)])
+def test_prefill_rotates_by_the_given_positions(reference_stack, start, step):  # noqa: F811
+    """positions ``start + step * arange``: a shift leaves RoPE's relative
+    angles as they were, a stride changes them, and both match the reference."""
+    ref_model, ref_params, model, params = _f32_pair(reference_stack)
+    s = 12
+    tokens = np.random.default_rng(7).integers(0, model.cfg.vocab_size, (B, s), dtype=np.int32)
+    positions = np.broadcast_to(start + step * np.arange(s, dtype=np.int32), (B, s))
+    want, _ = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens), "positions": jnp.asarray(positions)})
+    got, _ = model.prefill(params, {"tokens": torch.from_numpy(tokens), "positions": torch.from_numpy(positions.copy())})
+    _close(got, want, "float32", f"prefill logits at positions {start} + {step} * arange")
+    if step > 1:
+        default, _ = model.prefill(params, {"tokens": torch.from_numpy(tokens)})
+        assert not torch.allclose(got, default, atol=1e-3)  # the positions reach RoPE
+
+
+def test_the_prefill_step_passes_positions_to_the_model():
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_prefill_step
+
+    cfg = dataclasses.replace(port_configs.get_smoke_config(ARCH), dtype="float32")
+    step = build_prefill_step(cfg, ShapeConfig("serve", 12, B, "prefill"), "cpu")
+    params = step.model.init(0, "cpu")
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, 12), dtype=np.int32)
+    positions = np.broadcast_to(2 * np.arange(12, dtype=np.int32), (B, 12)).copy()
+    got, _ = step.fn(params, {"tokens": tokens, "positions": positions})
+    want, _ = step.model.prefill(params, {"tokens": torch.from_numpy(tokens), "positions": torch.from_numpy(positions)})
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    default, _ = step.fn(params, {"tokens": tokens})
+    assert not torch.allclose(got, default, atol=1e-3)
+
+
+def test_positions_that_do_not_strictly_increase_raise():
+    model = Model(port_configs.get_smoke_config(ARCH))
     params = model.init(0, "cpu")
-    with pytest.raises(ValueError, match="multiple"):
-        model.prefill(params, {"tokens": torch.zeros((1, 12), dtype=torch.int64) + 3})
+    tokens = torch.zeros((1, 24), dtype=torch.int64) + 3
+    restart = torch.cat([torch.arange(12), torch.arange(12)])[None]  # two packed documents
+    with pytest.raises(ValueError, match="strictly increase"):
+        model.prefill(params, {"tokens": tokens, "positions": restart})
+    with pytest.raises(ValueError, match=r"\(B, S\)"):
+        model.prefill(params, {"tokens": tokens, "positions": torch.arange(12)[None]})
+    ssd = Model(port_configs.get_smoke_config("mamba2-780m"))  # no attention: positions are not read
+    logits, _ = ssd.prefill(ssd.init(0, "cpu"), {"tokens": tokens, "positions": restart})
+    assert torch.isfinite(logits).all()

@@ -49,3 +49,20 @@ def test_greedy_tokens_match_the_reference(reference_stack, arch):  # noqa: F811
     assert [r.text for r in got] == [r.text for r in want]
     assert all(len(r.token_ids) == kw["max_new"] for r in got)
     assert len({tuple(r.token_ids) for r in got}) > 1  # the prompts steer the output
+
+
+def test_a_prompt_length_off_the_kernel_tile_serves_the_reference_tokens(reference_stack):  # noqa: F811
+    """prompt_len 20 is no multiple of the flash kernel's tile: the port pads
+    q, k and v to 64 inside the prefill and serves the reference's tokens."""
+    ref = reference_stack
+    ref_cfg = dataclasses.replace(ref.get_smoke_config("qwen3-0.6b"), dtype="float32")
+    cfg = dataclasses.replace(port_configs.get_smoke_config("qwen3-0.6b"), dtype="float32")
+    ref_params = ref.Model(ref_cfg).init(jax.random.PRNGKey(0))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+
+    kw = {"batch_size": 4, "prompt_len": 20, "max_new": 6}
+    want = ref.BatchServer(ref_cfg, ref_params, **kw).generate(PROMPTS)
+    got = BatchServer(cfg, params, device="cpu", **kw).generate(PROMPTS)
+
+    assert [r.token_ids for r in got] == [r.token_ids for r in want]
+    assert len({tuple(r.token_ids) for r in got}) > 1
