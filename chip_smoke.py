@@ -11,8 +11,10 @@ holds each against its plain PyTorch version at the main paths' shapes
     and checks every delivered batch against the same loader run on the CPU;
   - Qwen3-0.6B and Mamba2-780m at full width, cut to 2 layers, on the card
     against the same model and weights on the CPU (prefill, then 4 decode
-    steps), and Qwen3-0.6B so again at a prompt of 20 tokens, which the
-    prefill pads to K3's 64-row tiles (``prefill_ragged``);
+    steps), and each so again at a prompt of 20 tokens: Qwen3's prefill
+    pads it to K3's 64-row tiles (``prefill_ragged``), Mamba2's scans it in
+    one chunk of 20 steps, not a multiple of K4's 16-row tiles
+    (``prefill_ragged_ssd``);
   - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
     seed-initialized weights), prefill attention in ``flash_attention``;
   - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
@@ -437,9 +439,14 @@ def ssd_ops(b: int, l: int, h: int, p: int, n: int, chunk: int) -> int:
 
 
 def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
-    """K4 against its plain version on the card; times at the serving shape
-    (Mamba2-780m, batch 8, prompt 512: chunk 256, 48 heads of 64, one group
-    of d_state 128)."""
+    """K4 against its plain version on the card, each case on the route its
+    dtype picks (bf16: the tensor-core kernel; f32: the CUDA-core kernel);
+    times at the serving shape (Mamba2-780m, batch 8, prompt 512: chunk 256,
+    48 heads of 64, one group of d_state 128) for both routes, with each
+    kernel's ptxas registers and spills.  The ragged cases scan in the
+    chunks ``models.ssm.scan_chunk`` picks for prompts of 40 and 300 tokens
+    (40 and 4), neither a multiple of 16."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as ks
 
     gen = torch.Generator(device="cpu").manual_seed(4)
@@ -451,7 +458,12 @@ def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
         ("g2_f32", (2, 256, 4, 64, 2, 32), 64, torch.float32),
         ("g4", (1, 256, 4, 64, 4, 128), 128, torch.bfloat16),
         ("g4_f32", (1, 256, 4, 64, 4, 128), 128, torch.float32),
+        ("ragged_chunk40", (2, 40, 4, 64, 1, 128), 40, torch.bfloat16),
+        ("ragged_chunk4", (2, 300, 4, 64, 1, 128), 4, torch.bfloat16),
+        ("p48_n48", (1, 192, 3, 48, 1, 48), 96, torch.bfloat16),
+        ("p16_n112_g2", (1, 300, 2, 16, 2, 112), 100, torch.bfloat16),
     ]
+    ptxas = _build.ptxas("ssd_scan")
     entry = summary["ssd_scan"]
     for name, shape, chunk, dtype in cases:
         args = ssd_inputs(gen, *shape, dtype, dev)
@@ -459,22 +471,32 @@ def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
         want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk)
         sync(dev)
         on_y, on_h = within_tol(y, want_y, SSD_TOL), within_tol(h_final, want_h, SSD_TOL)
+        if dtype == torch.bfloat16:  # near 0 the ulps are many and atol decides: also count them above atol
+            big = want_y.float().abs() >= SSD_TOL[dtype]
+            on_y["max_bf16_ulps_above_atol"] = int(bf16_ulp_steps(y[big], want_y[big]).max()) if big.any() else 0
         row = {"phase": "kernels", "kernel": "ssd_scan", "case": name, "b_l_h_p_g_n": list(shape),
-               "chunk": chunk, "dtype": str(dtype), "y": on_y, "h_final": on_h,
-               "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+               "chunk": chunk, "dtype": str(dtype), "route": ks.kernel_route(dtype, shape[3], shape[5]),
+               "y": on_y, "h_final": on_h, "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
         if on_y["over_bar"] or on_h["over_bar"]:
             emit(row)
             raise AssertionError(f"ssd_scan {name}: elements over the bar")
-        if name == "main":
+        if name in ("main", "f32"):
             b, l, h, p, g, n = shape
             row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk), flush)
-            row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk), flush)
-            row["library_ms"] = None
             nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h_final))
             ops = ssd_ops(b, l, h, p, n, chunk)
-            row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S, card))
+            row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S, card))
+            row["over_bound"] = row["ms"] / row["bound_ms"]
+        if name == "main":
+            row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk), flush)
+            row["library_ms"] = None
             row["f32_cores_ms"] = ops / F32_OPS_PER_S * 1e3  # where products on the CUDA cores in f32 would stop
+            row["ptxas"] = ptxas  # both kernels, each instantiation
+            # batch 1: 48 blocks, fewer than the SMs, so this is one block's time (the
+            # main case runs 384 blocks of one SM each in three waves)
+            one = tuple(t[:1] if t.dim() > 1 else t for t in args)
+            row["batch1_ms"] = time_ms(lambda: ks.ssd_scan(*one, chunk=chunk), flush)
             entry.update({key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
         emit(row)
 
@@ -657,6 +679,10 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
           "param_bytes": param_bytes, "cache_bytes": cache_bytes})
     if launches != cfg.num_layers * batches:
         raise AssertionError(f"{kernel} launched {launches} times for {batches} prefill batches of {cfg.num_layers} layers")
+    # the profiler may drop a few of a step's ~2,800 kernel records, so the
+    # exact count is the wrapper's (above); the trace must show the kernel
+    if prefill_trace["kernel_launches"] < 1 or prefill_trace["kernel_ms"] <= 0:
+        raise AssertionError(f"the traced prefill shows no launch of {kernel_symbol}")
     if len(results) != len(prompts) or any(len(r.token_ids) != SERVE_NEW for r in results):
         raise AssertionError("a request did not get its tokens")
     if not all(finite):
@@ -695,6 +721,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:91", "launches": 0, "max_abs_err": 0.0,
         "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD chunked scan",
+        "cuda_route": "tc_bf16",  # ssd_tc_bf16, the main path's (bf16) kernel; f32 runs ssd_cuda_f32
     }
     try:
         dev = torch.device("cuda", 0)
@@ -706,6 +733,7 @@ def main() -> int:
         phase_model_check(dev, "qwen3-0.6b", 256)
         phase_model_check(dev, "qwen3-0.6b", 20, "prefill_ragged")  # padded to 64 for K3
         phase_model_check(dev, "mamba2-780m", 512)  # two chunks of 256
+        phase_model_check(dev, "mamba2-780m", 20, "prefill_ragged_ssd")  # one chunk of 20 for K4
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
@@ -713,7 +741,7 @@ def main() -> int:
             phase_main(ds, dev, summary)
             phase_example(ds, dev, summary)
         phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
-        phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_scan_kernel")
+        phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
     except Exception:
         traceback.print_exc()
         return 1

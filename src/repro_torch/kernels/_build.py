@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` into its own shared library under ``build/kernels/`` at the root
 of the checkout, then bound with ``ctypes``.  All sources are compiled
 together, one ``nvcc`` process each, so the build costs the time of the
-slowest file.  A library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded.
+slowest file.  A library's file name carries a hash of its source and of
+the ``csrc/`` headers it includes (``#include "name.cuh"``, followed
+through headers), so an edited source or header is rebuilt and a stale
+library is never loaded.
 
 Every library also exports ``const char* error_string(int)`` so that a
 launch function's ``cudaError_t`` can be raised with its message.  The
@@ -48,9 +50,26 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: pathlib.Path) -> list[pathlib.Path]:
+    """``src`` and the headers beside it that it includes, directly or
+    through another such header, each once, in the order first reached."""
+    seen = [src]
+    for path in seen:
+        for name in _LOCAL_INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header.is_file() and header not in seen:
+                seen.append(header)
+    return seen
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> tuple[float, str]:

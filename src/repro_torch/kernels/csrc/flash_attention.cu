@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1073741824.0f;  // -2**30, the body's NEG_INF
@@ -78,51 +80,6 @@ constexpr int kKeys = 64;  // keys per staged K or V tile
 constexpr int kSlots = 4;  // the K/V ring
 constexpr int kPad = 8;    // bf16 after each staged row (16 bytes)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half: the lower k index
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // 2**x on the SFU (ex2.approx, 2 ulp; a subnormal result flushes to 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -130,10 +87,8 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): a C tile's
-// c[0], c[1] are row g, columns 2t and 2t+1; c[2], c[3] the same columns of
-// row g+8.  So the S tile of keys 16kk..16kk+15 (n8 blocks 2kk and 2kk+1)
-// is, rounded to bf16, the A fragment of P.V for those keys.
+// The S tile of keys 16kk..16kk+15 (n8 blocks 2kk and 2kk+1) is, rounded
+// to bf16, the A fragment of P.V for those keys (mma_bf16.cuh's layouts).
 template <int HD, int NSUB>  // NSUB = block_k / 64
 __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
     const __nv_bfloat16* __restrict__ q,  // (b, h, sq, hd)

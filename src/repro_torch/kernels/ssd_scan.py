@@ -24,9 +24,16 @@ move ``exp(cs_i - cs_j)`` by as much as the f32 bar.  With the double sum
 the kernel and the plain version agree on ``cs`` bit for bit.
 
 ``ssd_scan`` dispatches on the device of x: a CPU tensor goes through
-``ssd_scan_plain`` beside it, a CUDA tensor launches the hand-written
-kernel in ``csrc/ssd_scan.cu`` (or raises), and each launch adds one to
-``ssd_scan.launches``.
+``ssd_scan_plain`` beside it, a CUDA tensor launches one of the two
+hand-written kernels in ``csrc/ssd_scan.cu`` (or raises), and each launch
+of either adds one to ``ssd_scan.launches``.  The dtype picks the kernel
+(``kernel_route``): bf16 runs on the tensor cores, its f32 operands (the
+scores, the state and x * w) as sums of bf16 pieces, so its y and h_final
+differ from the plain version's by rounding; f32 runs on the CUDA cores.
+Both take head_dim 16, 32, 48 or 64 and d_state a multiple of 16 up to
+128; the bf16 kernel holds a whole chunk in shared memory and takes any
+chunk up to 256 (every chunk ``models.ssm.scan_chunk`` picks), the f32
+kernel any chunk.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ import torch
 from . import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_HEAD_DIMS = (16, 32, 48, 64)  # P: a block keeps (64 rows x P) of y in registers
-_KERNEL_MAX_STATE = 128  # N: a multiple of 16; a thread keeps N / 16 columns of the state update
+_KERNEL_HEAD_DIMS = (16, 32, 48, 64)  # P: a warp keeps (16 rows x P) of y in registers
+_KERNEL_MAX_STATE = 128  # N: a multiple of 16; a warp keeps C of its rows (16 x N) in registers
+_TC_MAX_CHUNK = 256  # bf16: a block of 16 warps holds the chunk, 16 rows a warp
 
 
 def _check(x, dt, a, b, c, chunk: int) -> None:
@@ -66,6 +74,20 @@ def _check(x, dt, a, b, c, chunk: int) -> None:
         raise TypeError(f"dt and a must be float32; got {dt.dtype}, {a.dtype}")
     if not (x.device == dt.device == a.device == b.device == c.device):
         raise ValueError(f"x, dt, a, b and c lie on {x.device}, {dt.device}, {a.device}, {b.device}, {c.device}")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
+    """The CUDA kernel that ``ssd_scan`` launches for a CUDA tensor:
+    ``"tc_bf16"`` (bf16 on the tensor cores) or ``"cuda_f32"`` (f32 on the
+    CUDA cores).  Raises ``ValueError`` for a head dim or d_state that the
+    kernels do not take, ``TypeError`` for another dtype."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: no CUDA kernel for {dtype}")
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"ssd_scan: the CUDA kernels take head_dim in {_KERNEL_HEAD_DIMS}; got {head_dim}")
+    if d_state <= 0 or d_state % 16 or d_state > _KERNEL_MAX_STATE:
+        raise ValueError(f"ssd_scan: the CUDA kernels take d_state a multiple of 16 up to {_KERNEL_MAX_STATE}; got {d_state}")
+    return "tc_bf16" if dtype == torch.bfloat16 else "cuda_f32"
 
 
 def chunk_cumsum(da: torch.Tensor, dim: int) -> torch.Tensor:
@@ -128,7 +150,8 @@ def ssd_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) f32).
     Raises ``ValueError`` where the reference asserts: ``H % G`` and
-    ``L % chunk``."""
+    ``L % chunk``; on a CUDA device also where ``kernel_route`` does and
+    for a bf16 chunk over 256."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
     if x.device.type != "cuda":
@@ -136,15 +159,16 @@ def ssd_scan(
     _check(x, dt, a, b, c, chunk)
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    if p not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"ssd_scan: the CUDA kernel takes head_dim in {_KERNEL_HEAD_DIMS}; got {p}")
-    if n % 16 or n > _KERNEL_MAX_STATE:
-        raise ValueError(f"ssd_scan: the CUDA kernel takes d_state a multiple of 16 up to {_KERNEL_MAX_STATE}; got {n}")
+    if kernel_route(x.dtype, p, n) == "tc_bf16" and chunk > _TC_MAX_CHUNK:
+        raise ValueError(f"ssd_scan: the bf16 kernel takes chunk up to {_TC_MAX_CHUNK}; got {chunk}")
     if bsz * h > 2**31 - 1:
         raise ValueError(f"ssd_scan: batch {bsz} x heads {h} is too many blocks")
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} must be 16-byte aligned")
     y = torch.empty_like(x)
     h_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if x.numel() == 0:

@@ -8,7 +8,15 @@ The same x, dt, a, b and c, made from a seed with numpy, go through
 CUDA kernel is held to on the card.  The shapes are the reference sweep's
 (``tests/test_kernels.py``), and so is the tolerance: 3e-5 (f32) and 6e-2
 (bf16), as both atol and rtol, on y and on the final state.
+
+The bf16 CUDA kernel meets the tensor cores with bf16 operands only: the
+f32 scores, state and x * w go in as sums of bf16 pieces.  Its arithmetic
+is rehearsed here with the plain scan, each such operand replaced by the
+f32 sum of its pieces, and held to the same bars, y 6e-2 and h_final 3e-5.
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -29,6 +37,10 @@ SWEEP = [  # b, l, h, p, g, n, chunk
     (1, 256, 4, 64, 4, 128, 128),  # mamba2-780m-like head
     (2, 512, 8, 64, 1, 64, 128),
 ]
+
+
+SERVING_HEAD = (1, 512, 1, 64, 1, 128, 256)  # one head of Mamba2-780m's prefill: chunk 256
+KERNEL_SOURCE = pathlib.Path(ks.__file__).parent / "csrc" / "ssd_scan.cu"
 
 
 def _inputs(b, l, h, p, g, n, seed=0):
@@ -119,3 +131,76 @@ def test_a_tensor_on_neither_the_cpu_nor_cuda_raises():
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
         ops.ssd_scan(x, dt, a, bm, cm, chunk=16)
     assert ks.ssd_scan.launches == launches
+
+
+@pytest.mark.parametrize(
+    "dtype,p,n,route",
+    [(torch.bfloat16, p, n, "tc_bf16") for p in (16, 32, 48, 64) for n in (16, 128)]
+    + [(torch.float32, 64, 128, "cuda_f32"), (torch.float32, 16, 48, "cuda_f32")],
+)
+def test_the_dtype_picks_the_cuda_kernel(dtype, p, n, route):
+    assert ks.kernel_route(dtype, p, n) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p,n,match", [(128, 128, "head_dim"), (80, 64, "head_dim"), (64, 144, "d_state"), (64, 40, "d_state")])
+def test_the_cuda_route_raises_for_shapes_the_kernels_do_not_take(dtype, p, n, match):
+    """The wrapper calls ``kernel_route`` before it launches on a CUDA
+    tensor; on the CPU, where no kernel launches, it raises all the same."""
+    with pytest.raises(ValueError, match=match):
+        ks.kernel_route(dtype, p, n)
+
+
+def test_the_cuda_route_raises_for_other_dtypes():
+    with pytest.raises(TypeError):
+        ks.kernel_route(torch.float16, 64, 128)
+
+
+def _pieces(t, k):
+    """The f32 sum of ``k`` bf16 pieces of ``t``: hi = bf16(t), then the
+    bf16 of each remainder (round to nearest even, as ``__floats2bfloat162_rn``)."""
+    out, rest = torch.zeros_like(t), t
+    for _ in range(k):
+        piece = rest.to(torch.bfloat16).float()
+        out, rest = out + piece, rest - piece
+    return out
+
+
+def _split_scan(x, dt, a, b, c, chunk, xw_pieces):
+    """``ssd_scan_plain`` with the scores S and the state h as hi + lo and
+    x * w as ``xw_pieces`` pieces where they meet the tensor cores."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hg, nc = h // g, l // chunk
+    xf = x.float().reshape(bsz, nc, chunk, g, hg, p)
+    dtf = dt.reshape(bsz, nc, chunk, g, hg)
+    bf, cf = (t.float().reshape(bsz, nc, chunk, g, n) for t in (b, c))
+    idx = torch.arange(chunk)
+    lower = (idx[:, None] >= idx[None, :])[None, :, :, None, None]
+    state = torch.zeros((bsz, g, hg, p, n))
+    ys = []
+    for ci in range(nc):
+        xc, dtc, bc, cc = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci]
+        cs = ks.chunk_cumsum(dtc * a.reshape(g, hg), dim=1)
+        el = torch.where(lower, torch.exp(cs[:, :, None] - cs[:, None, :]), 0.0)
+        scores = _pieces(torch.einsum("bign,bjgn->bijg", cc, bc)[..., None] * el * dtc[:, None], 2)
+        y = torch.einsum("bijgk,bjgkp->bigkp", scores, xc)
+        y = y + torch.exp(cs)[..., None] * torch.einsum("bign,bgkpn->bigkp", cc, _pieces(state, 2))
+        xw = _pieces(xc * (torch.exp(cs[:, -1:] - cs) * dtc)[..., None], xw_pieces)
+        state = state * torch.exp(cs[:, -1])[..., None, None] + torch.einsum("bqgkp,bqgn->bgkpn", xw, bc)
+        ys.append(y.reshape(bsz, chunk, h, p).to(x.dtype))
+    return torch.cat(ys, dim=1), state.reshape(bsz, h, p, n)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", SWEEP + [SERVING_HEAD])
+def test_the_bf16_kernels_split_products_hold_the_bars(b, l, h, p, g, n, chunk):
+    """The bf16 kernel's pieces, rehearsed on the CPU: S and h as hi + lo,
+    x * w as the kernel's ``kXwPieces``; y within 6e-2 and h_final within
+    3e-5 of the plain version."""
+    xw_pieces = int(re.search(r"constexpr int kXwPieces = (\d+);", KERNEL_SOURCE.read_text()).group(1))
+    assert xw_pieces == 3
+    args = _torch(_inputs(b, l, h, p, g, n), "bfloat16")
+    want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk)
+    y, h_final = _split_scan(*args, chunk, xw_pieces)
+    _close(y, want_y.float().numpy(), "bfloat16", "y")
+    np.testing.assert_allclose(h_final.numpy(), want_h.numpy(), atol=TOL["float32"], rtol=TOL["float32"], err_msg="h_final")
