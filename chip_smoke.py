@@ -5,10 +5,13 @@ card and check them.
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version at the main paths' shapes
-(with timings and the card's bound), then runs
+(with timings and the card's bound; the decode kernels bit for bit, also at
+the edges of their row staging, and timed once more in turn beside a cast
+and a copy of the same bytes), then runs
   - the port's image loader at ImageNet training geometry (256x256 RGB
-    frames, batch 128, random 224x224 crops and flips decoded on the card)
-    and checks every delivered batch against the same loader run on the CPU;
+    frames, batch 128, random 224x224 crops and flips decoded on the card),
+    checks every delivered batch against the same loader run on the CPU,
+    and times one batch's host→device copy;
   - Qwen3-0.6B and Mamba2-780m at full width, cut to 2 layers, on the card
     against the same model and weights on the CPU (prefill, then 4 decode
     steps), and each so again at a prompt of 20 tokens: Qwen3's prefill
@@ -100,6 +103,18 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _timed_once(fn, flush: torch.Tensor, hide_host: bool) -> float:
+    flush.zero_()
+    if hide_host:
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def time_ms(fn, flush: torch.Tensor, hide_host: bool = True) -> float:
     """Median device time of ``fn`` over TIMED_RUNS launches, each after an
     L2 flush (the decode reads a batch that was just copied in, cold).  With
@@ -107,17 +122,34 @@ def time_ms(fn, flush: torch.Tensor, hide_host: bool = True) -> float:
     ``fn``, so the wrapper's host time before its launch is not counted."""
     for _ in range(3):
         fn()
+    return statistics.median(_timed_once(fn, flush, hide_host) for _ in range(TIMED_RUNS))
+
+
+def time_interleaved_ms(fns: dict, flush: torch.Tensor) -> dict:
+    """``time_ms`` of each of ``fns``, taken in turn within each of the
+    TIMED_RUNS rounds, so that all of them see the same card state."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    times: dict[str, list[float]] = {name: [] for name in fns}
+    for _ in range(TIMED_RUNS):
+        for name, fn in fns.items():
+            times[name].append(_timed_once(fn, flush, True))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def host_ms(fn, dev: torch.device) -> float:
+    """Median host time of one call of ``fn`` with the card idle: what the
+    caller's thread spends before it returns."""
+    for _ in range(3):
+        fn()
     times = []
     for _ in range(TIMED_RUNS):
-        flush.zero_()
-        if hide_host:
-            torch.cuda._sleep(HOST_COVER_CYCLES)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
+        sync(dev)
+        t0 = time.perf_counter()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append((time.perf_counter() - t0) * 1e3)
+    sync(dev)
     return statistics.median(times)
 
 
@@ -154,71 +186,140 @@ def phase_build() -> None:
 
 
 def phase_kernels(dev: torch.device, summary: dict, card: str) -> None:
+    """K1 and K2 against their plain versions on the card, every case bit
+    for bit: the main paths' shapes, and the edges of the kernel's row
+    staging (spans that end at x's last byte, rows of 51 bytes, odd left
+    offsets that start a span mid-word, a batch of 1, a row tile cut short,
+    draws outside the frame and flips other than 0 and 1).  The main cases
+    are timed, K1 also through its wrapper, and K1, K2 and a same-bytes
+    cast once more in turn."""
     from repro_torch.kernels import dequant_normalize as dn
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     mean = torch.tensor(MEAN, device=dev)
     std = torch.tensor(STD, device=dev)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    k1, k2 = summary["dequant_normalize_augment"], summary["dequant_normalize"]
 
     def frames(shape, dtype):
         if dtype == torch.uint8:
             return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
         return torch.rand(shape, generator=gen).to(dev)
 
-    cases = [
-        ("main", (BATCH, *FRAME, 3), torch.uint8, CROP, torch.bfloat16, True),
-        ("f32_in", (BATCH, *FRAME, 3), torch.float32, CROP, torch.bfloat16, False),
-        ("f32_out", (BATCH, *FRAME, 3), torch.uint8, CROP, torch.float32, False),
-        ("odd", (3, 13, 17, 3), torch.uint8, (9, 11), torch.bfloat16, False),
+    def draws(kind, n, h, w, oh, ow):
+        flip = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32)
+        top = torch.randint(0, h - oh + 1, (n,), generator=gen)
+        left = torch.randint(0, w - ow + 1, (n,), generator=gen)
+        if kind == "corner":
+            top, left = torch.full((n,), h - oh), torch.full((n,), w - ow)
+        elif kind == "odd_left":
+            left = (left | 1).clamp(max=w - ow)
+        elif kind == "wild":
+            flip = torch.tensor([2, -1, 7, 0] * n, dtype=torch.int32)[:n]
+            top = torch.tensor([-5, 100, -1, 1000] * n)[:n]
+            left = torch.tensor([100, -5, -1, 3] * n)[:n]
+        return flip, torch.stack([top, left], 1).to(torch.int32)
+
+    def exact(row, what):
+        if row["mismatches"]:
+            emit(row)
+            raise AssertionError(f"{what}: {row['mismatches']} elements differ from the plain version")
+
+    u8, f32, bf16 = torch.uint8, torch.float32, torch.bfloat16
+    odd = (3, 13, 17, 3)  # 51-byte rows; x ends 5 bytes into a 16-byte word
+    cases = [  # name, shape, in dtype, out_hw, out dtype, draws
+        ("main", (BATCH, *FRAME, 3), u8, CROP, bf16, "random"),
+        ("f32_in", (BATCH, *FRAME, 3), f32, CROP, bf16, "random"),
+        ("f32_out", (BATCH, *FRAME, 3), u8, CROP, f32, "random"),
+        ("odd", odd, u8, (9, 11), bf16, "random"),
+        ("far_corner", (BATCH, *FRAME, 3), u8, CROP, bf16, "corner"),
+        ("far_corner_odd", odd, u8, (9, 11), bf16, "corner"),
+        ("odd_left", (BATCH, *FRAME, 3), u8, CROP, bf16, "odd_left"),
+        ("batch1", (1, *FRAME, 3), u8, CROP, bf16, "random"),
+        ("ragged_rows", (4, 40, 48, 3), u8, (27, 32), bf16, "random"),  # 27 rows: 3 tiles of 8 and one of 3
+        ("wild_draws", (4, 40, 48, 3), u8, (27, 32), bf16, "wild"),
+        ("odd_f32_in_out", odd, f32, (9, 11), f32, "corner"),
     ]
-    for case, shape, in_dtype, (oh, ow), out_dtype, timed in cases:
+    for case, shape, in_dtype, (oh, ow), out_dtype, kind in cases:
         n, h, w, c = shape
         x = frames(shape, in_dtype)
-        flip = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32)
-        crop = torch.stack([torch.randint(0, h - oh + 1, (n,), generator=gen),
-                            torch.randint(0, w - ow + 1, (n,), generator=gen)], 1).to(torch.int32)
+        flip, crop = draws(kind, n, h, w, oh, ow)
         got = dn.dequant_normalize_augment(x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype)
         want = dn.dequant_normalize_augment_plain(x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype)
         sync(dev)
         row = {"phase": "kernels", "kernel": "dequant_normalize_augment", "case": case,
                "shape": list(shape), "in": str(in_dtype), "out_hw": [oh, ow], "out": str(out_dtype),
-               **compare(got, want)}
-        summary["dequant_normalize_augment"]["max_abs_err"] = max(
-            summary["dequant_normalize_augment"]["max_abs_err"], row["max_abs_err"])
-        if row["over_bar"]:
-            emit(row)
-            raise AssertionError(f"dequant_normalize_augment {case}: {row['over_bar']} elements over the bar")
-        if timed:
-            params = dn._augment_params(x, flip, crop, oh, ow).to(dev)
+               "draws": kind, **compare(got, want)}
+        k1["max_abs_err"] = max(k1["max_abs_err"], row["max_abs_err"])
+        exact(row, f"dequant_normalize_augment {case}")
+        if case == "main":
             dflip, dcrop = flip.to(dev), crop.to(dev)
-            scale = dn.U8_SCALE
-            row["ms"] = time_ms(lambda: dn._launch(x, mean, std, params, oh, ow, scale, out_dtype, "k1"), flush)
-            row["wrapper_ms"] = time_ms(lambda: dn.dequant_normalize_augment(
-                x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype), flush, hide_host=False)
+            params = dn._card_draws(x, dflip, dcrop)
+
+            def wrapper():
+                return dn.dequant_normalize_augment(x, mean, std, flip, crop, out_hw=(oh, ow), out_dtype=out_dtype)
+
+            row["ms"] = time_ms(lambda: dn._launch(x, mean, std, params, oh, ow, dn.U8_SCALE, out_dtype, "k1"),
+                                flush)
+            row["wrapper_ms"] = time_ms(wrapper, flush, hide_host=False)
+            row["wrapper_host_ms"] = host_ms(wrapper, dev)
             row["plain_ms"] = time_ms(lambda: dn.dequant_normalize_augment_plain(
                 x, mean, std, dflip, dcrop, out_hw=(oh, ow), out_dtype=out_dtype), flush)
             row.update(dequant_bound(n * oh * ow * c, x.element_size(), n * c * oh * ow, got.element_size(),
                                      params.numel() * 4 + 2 * c * 4, card))
-            summary["dequant_normalize_augment"].update(
-                {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+            row["over_bound"] = row["ms"] / row["bound_ms"]
+            row["wrapper_note"] = ("wrapper_ms: device time with the host's draws staged and copied in the "
+                                   "timed window; wrapper_host_ms: the caller's host time a call, card idle")
+            k1_main = (x, params)
+            k1.update({key: row[key] for key in
+                       ("ms", "plain_ms", "bound_ms", "bound_by", "wrapper_ms", "wrapper_host_ms")})
         emit(row)
 
-    x = frames((BATCH, *CROP, 3), torch.uint8)
-    got = dn.dequant_normalize(x, mean, std)
-    want = dn.dequant_normalize_plain(x, mean, std)
-    sync(dev)
-    row = {"phase": "kernels", "kernel": "dequant_normalize", "case": "main",
-           "shape": list(x.shape), **compare(got, want)}
-    if row["over_bar"]:
+    k2_cases = [  # name, shape, in dtype, out dtype
+        ("main", (BATCH, *CROP, 3), u8, bf16),
+        ("odd", odd, u8, bf16),
+        ("odd_f32_out", odd, u8, f32),
+        ("batch1", (1, *CROP, 3), u8, bf16),
+    ]
+    for case, shape, in_dtype, out_dtype in k2_cases:
+        x = frames(shape, in_dtype)
+        got = dn.dequant_normalize(x, mean, std, out_dtype=out_dtype)
+        want = dn.dequant_normalize_plain(x, mean, std, out_dtype=out_dtype)
+        sync(dev)
+        row = {"phase": "kernels", "kernel": "dequant_normalize", "case": case,
+               "shape": list(x.shape), "out": str(out_dtype), **compare(got, want)}
+        k2["max_abs_err"] = max(k2["max_abs_err"], row["max_abs_err"])
+        exact(row, f"dequant_normalize {case}")
+        if case == "main":
+            row["ms"] = time_ms(lambda: dn.dequant_normalize(x, mean, std), flush)
+            row["plain_ms"] = time_ms(lambda: dn.dequant_normalize_plain(x, mean, std), flush)
+            row.update(dequant_bound(x.numel(), 1, x.numel(), 2, 2 * 3 * 4, card))
+            row["over_bound"] = row["ms"] / row["bound_ms"]
+            k2_x = x
+            k2.update({key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
         emit(row)
-        raise AssertionError(f"dequant_normalize: {row['over_bar']} elements over the bar")
-    row["ms"] = time_ms(lambda: dn.dequant_normalize(x, mean, std), flush)
-    row["plain_ms"] = time_ms(lambda: dn.dequant_normalize_plain(x, mean, std), flush)
-    row.update(dequant_bound(x.numel(), 1, x.numel(), 2, 2 * 3 * 4, card))
-    summary["dequant_normalize"].update(
-        {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
-    emit(row)
+
+    # K1 and K2 in turn, with a cast that reads and writes K2's bytes beside them
+    x1, params = k1_main
+    half = torch.empty(k2_x.numel() * 3 // 2, dtype=torch.uint8, device=dev)  # half of K2's bytes
+    half_out = torch.empty_like(half)
+    both = time_interleaved_ms({
+        "k1": lambda: dn._launch(x1, mean, std, params, *CROP, dn.U8_SCALE, bf16, "k1"),
+        "k2": lambda: dn._launch(k2_x, mean, std, None, *CROP, dn.U8_SCALE, bf16, "k2"),
+        "same_bytes": lambda: k2_x.to(bf16),
+        "memcpy_same_bytes": lambda: half_out.copy_(half),
+    }, flush)
+    emit({"phase": "kernels", "case": "k1_k2_interleaved", "k1_ms": both["k1"], "k2_ms": both["k2"],
+          "same_bytes_ms": both["same_bytes"], "memcpy_same_bytes_ms": both["memcpy_same_bytes"],
+          "bound_ms": k2["bound_ms"],
+          "same_bytes": "x.to(torch.bfloat16) on K2's input: the same bytes read and written, "
+                        "no transpose, no normalize; a yardstick, not library_ms",
+          "memcpy_same_bytes": "a device-to-device copy of half K2's bytes: the same bytes moved as "
+                               "plainly as the card moves them",
+          "order": "K1, K2, same_bytes, memcpy_same_bytes in turn, each after an L2 flush, "
+                   "median of TIMED_RUNS rounds"})
+    k1["interleaved_ms"], k2["interleaved_ms"] = both["k1"], both["k2"]
+    k2["same_bytes_ms"], k2["memcpy_same_bytes_ms"] = both["same_bytes"], both["memcpy_same_bytes"]
 
 
 def run_loader(ds, device, decode, epochs: int, keep) -> tuple[int, float]:
@@ -239,6 +340,26 @@ def run_loader(ds, device, decode, epochs: int, keep) -> tuple[int, float]:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return n, time.monotonic() - t0
+
+
+def h2d_copy(dev: torch.device) -> dict:
+    """One batch's host→device copy as ``DeviceTransfer._put`` makes it:
+    from a pinned slab-shaped tensor, on a side stream, timed with CUDA
+    events on that stream (median of TIMED_RUNS copies)."""
+    host = torch.full((BATCH, *FRAME, 3), 7, dtype=torch.uint8, pin_memory=True)
+    side = torch.cuda.Stream(dev)
+    times = []
+    for i in range(3 + TIMED_RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            host.to(dev, non_blocking=True)
+            end.record(side)
+        end.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    return {"h2d_ms": ms, "h2d_gb_per_s": host.numel() / ms * 1e-6, "h2d_batch_bytes": host.numel()}
 
 
 def phase_main(ds, dev: torch.device, summary: dict) -> None:
@@ -268,7 +389,9 @@ def phase_main(ds, dev: torch.device, summary: dict) -> None:
           "slabs_pinned": n_card == expected,
           "pinned_rule": "on CUDA the transfer copies each slab batch from its pinned tensor and raises otherwise",
           "all_batches_vs_cpu_run": worst, "wall_s": wall, "images_per_s": n_card * BATCH / wall,
-          "h2d_bytes": n_card * BATCH * FRAME[0] * FRAME[1] * 3, "reading": "images_per_s and h2d_bytes are not gates"})
+          "h2d_bytes": n_card * BATCH * FRAME[0] * FRAME[1] * 3, "loader_ms_per_batch": wall / n_card * 1e3,
+          **h2d_copy(dev), "k1_ms": summary["dequant_normalize_augment"]["ms"],
+          "reading": "images_per_s, the copy's time and h2d_bytes are not gates"})
     if n_card != expected or n_host != expected:
         raise AssertionError(f"delivered {n_card} (card) / {n_host} (cpu) batches, expected {expected}")
     if launches != n_card:
