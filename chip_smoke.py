@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's image path and its LM serving path on one CUDA
-card and check them.
+"""Drive the PyTorch port's image path, its LM serving path and its LM
+training path on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,16 @@ and a copy of the same bytes), then runs
   - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
     seed-initialized weights), prefill attention in ``flash_attention``;
   - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
-    seed-initialized weights), the prefill scan in ``ssd_scan``.
+    seed-initialized weights), the prefill scan in ``ssd_scan``;
+  - one training step of Qwen3-0.6B and of Mamba2-780m at full width, cut
+    to 2 layers, on the card against the same step on the CPU
+    (``train_check``);
+  - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
+    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 8 steps,
+    with a checkpoint at step 4 that a fresh ``Trainer.from_checkpoint``
+    restores bit for bit, and Mamba2-780m for 2 steps.  Training launches
+    none of the four kernels: the reference trains through its plain
+    attention and SSD scan, which the port repeats under autograd.
 Each phase prints one JSON line.  The last three lines are the kernel
 summary, the card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": ...}``.
@@ -66,6 +75,10 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TO
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
+CHECK_SEQ, CHECK_BATCH = 512, 2  # train_check: one step, card against CPU, 2 layers
+TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 8, 4, 2
+OWN_ROUNDING = 1.5  # a bf16 gradient leaf may differ by 1.5x the CPU's own bf16 rounding of it
 
 
 def emit(obj: dict) -> None:
@@ -624,20 +637,6 @@ def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
         emit(row)
 
 
-def _tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree) -> list:
-    out = []
-    _tree(out.append, tree)
-    return out
-
-
 def _rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
@@ -656,6 +655,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
+    from repro_torch.tree import tree_map
 
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
     model = Model(cfg)
@@ -677,7 +677,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     t0 = time.monotonic()
     with torch.inference_mode():
         params = model.init(seed=0, device=dev)
-        host_params = _tree(lambda t: t.cpu(), params)
+        host_params = tree_map(lambda t: t.cpu(), params)
         before = flash_attention.flash_attention.launches + ssd_scan.ssd_scan.launches
         logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, seq_cap=s + steps)
         launches = flash_attention.flash_attention.launches + ssd_scan.ssd_scan.launches - before
@@ -711,13 +711,16 @@ def serve_prompts(n: int) -> list[str]:
     return out
 
 
-def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
+def trace_step(dev: torch.device, fn, kernel_symbol: str, host_ops: bool = True) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the card's busy time (the
-    sum of its kernels' times), the named kernel's share, and the top five."""
+    sum of its kernels' times), the named kernel's share, and the top five.
+    ``host_ops=False`` records the card's activity only, which keeps a step
+    of some 280,000 kernels affordable to trace."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         fn()
         sync(dev)
     on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -739,6 +742,7 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
     from repro_torch.runtime import BatchServer
+    from repro_torch.tree import tree_leaves
 
     wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
     cfg = get_config(arch)
@@ -780,7 +784,7 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     prefill_trace = trace_step(dev, prefill_once, kernel_symbol)
     cur = held["logits"].argmax(dim=-1, keepdim=True)
     decode_trace = trace_step(dev, lambda: decode_step(params, held["cache"], cur, SERVE_PROMPT), kernel_symbol)
-    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     cache_bytes = sum(
         math.prod(shape) * dt.itemsize
         for seg in model.cache_spec(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
@@ -811,6 +815,236 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     if not all(finite):
         raise AssertionError("non-finite logits")
     summary[kernel]["launches"] = launches
+
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels import dequant_normalize, flash_attention, ssd_scan
+
+    return {"dequant_normalize_augment": dequant_normalize.dequant_normalize_augment.launches,
+            "dequant_normalize": dequant_normalize.dequant_normalize.launches,
+            "flash_attention": flash_attention.flash_attention.launches,
+            "ssd_scan": ssd_scan.ssd_scan.launches}
+
+
+def _zero_kernel_launches() -> None:
+    from repro_torch.kernels import dequant_normalize, flash_attention, ssd_scan
+
+    for wrapper in (dequant_normalize.dequant_normalize_augment, dequant_normalize.dequant_normalize,
+                    flash_attention.flash_attention, ssd_scan.ssd_scan):
+        wrapper.launches = 0
+
+
+def packed_batch(vocab: int, b: int, s: int, seed: int) -> dict:
+    """b packed rows of s tokens from seeded documents of 64-400 tokens:
+    positions restart and segment ids count per document."""
+    import numpy as np
+
+    from repro_torch.data.packing import SequencePacker, collate
+
+    rng = np.random.default_rng(seed)
+    packer, rows = SequencePacker(s), []
+    while len(rows) < b:
+        rows += packer.add(rng.integers(0, vocab, int(rng.integers(64, 401)), dtype=np.int32))
+    return collate(rows[:b])
+
+
+def one_train_step(cfg, dev: torch.device, params: dict, batch: dict) -> tuple[dict, list]:
+    """One ``build_train_step`` step of ``cfg`` on ``dev`` from ``params``:
+    its metrics and the gradient leaves it applied (read from its call of
+    ``apply_update``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import tree_leaves
+
+    bundle = steps.build_train_step(cfg, ShapeConfig("check", CHECK_SEQ, CHECK_BATCH, "train"),
+                                    grad_accum=1, device=dev)
+    seen = []
+    real_update = steps.apply_update
+
+    def update(opt_cfg, params, grads, state):
+        seen.extend(g.detach().clone() for g in tree_leaves(grads))
+        return real_update(opt_cfg, params, grads, state)
+
+    steps.apply_update = update
+    try:
+        _, _, metrics = bundle.fn(params, init_opt_state(bundle.opt_cfg, params), batch)
+    finally:
+        steps.apply_update = real_update
+    return {k: float(v) for k, v in metrics.items()}, seen
+
+
+def phase_train_check(dev: torch.device, arch: str) -> None:
+    """One training step of ``arch`` at full width, 2 layers, bf16, on the
+    card against the same step on the CPU from the same parameters
+    (``Model.init(0)`` on the CPU, copied) and one seeded packed batch:
+    loss and global gradient norm within 2e-2, and each gradient leaf's
+    largest difference over its largest |value|.  A bf16 gradient is only
+    as good as bf16's rounding, which moves the CPU's own bf16 gradient
+    1-4% of the largest value off its f32 one; two bf16 runs differ by
+    about 1.4x that.  So a leaf is held, on the card, to the CPU's f32
+    gradient of the same step: within 2e-2 or within 1.5x the CPU's own
+    bf16 rounding of that leaf, whichever is larger; its difference from
+    the CPU's bf16 leaf is reported beside it.  The step launches none of
+    K1-K4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_items, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    t0 = time.monotonic()
+    host = Model(cfg).init(seed=0, device="cpu")
+    batch = packed_batch(cfg.vocab_size, CHECK_BATCH, CHECK_SEQ, seed=6)
+    _zero_kernel_launches()
+    card_m, card_g = one_train_step(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), host), batch)
+    sync(dev)
+    launches = _kernel_launches()
+    card_s = time.monotonic() - t0
+    cpu_m, cpu_g = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    _, f32_g = one_train_step(f32, torch.device("cpu"), tree_map(lambda t: t.float(), host), batch)
+    names = [k for k, _ in tree_items(host)]
+    leaves, over = {}, {}
+    for name, g, want, w32 in zip(names, card_g, cpu_g, f32_g):
+        own = float((want.float() - w32).abs().max() / w32.abs().max())
+        leaves[name] = {"rel_err": _rel_err(g, want, name), "vs_cpu_f32": _rel_err(g, w32, name),
+                        "cpu_bf16_vs_f32": own}
+        if leaves[name]["vs_cpu_f32"] > max(MODEL_REL, OWN_ROUNDING * own):
+            over[name] = leaves[name]
+    scalars = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm")}
+    emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "batch": CHECK_BATCH, "seq": CHECK_SEQ, "dtype": cfg.dtype,
+          "documents_in_batch": int(batch["segment_ids"].max()) + 1,
+          "loss": {"card": card_m["loss"], "cpu": cpu_m["loss"]},
+          "grad_norm": {"card": card_m["grad_norm"], "cpu": cpu_m["grad_norm"]},
+          "rel_err": scalars, "max_leaf_rel_err": max(v["rel_err"] for v in leaves.values()),
+          "leaves": leaves, "bar": f"loss, grad_norm: card vs cpu <= {MODEL_REL}; a leaf: vs_cpu_f32 <= "
+          f"max({MODEL_REL}, {OWN_ROUNDING} x cpu_bf16_vs_f32), of the largest |cpu value|",
+          "kernel_launches": launches, "card_seconds": card_s, "seconds": time.monotonic() - t0})
+    if any(v > MODEL_REL for v in scalars.values()) or over:
+        raise AssertionError(f"train_check {arch} over the bar: {scalars} {over}")
+    if any(launches.values()):
+        raise AssertionError(f"train_check {arch} launched a kernel: {launches}")
+
+
+def phase_train(dev: torch.device, arch: str, steps: int, resume: bool) -> None:
+    """The training path at full width and depth: ``build_lm_loader`` on the
+    card feeding ``Trainer.fit`` on ``arch``, seed-0 weights, seq 4096,
+    global batch 8 at the config's own ``grad_accum["train_4k"]``.  Each
+    step's time runs to its end on the card.  With ``resume`` a checkpoint
+    is saved at step 4, and a fresh ``Trainer.from_checkpoint`` must restore
+    the parameters and optimizer state bit for bit, the step and the
+    sampler, then take 2 steps.  K1-K4 must not launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import CheckpointableSampler, SyntheticTokenDataset, build_lm_loader
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_items, tree_map
+
+    cfg = get_config(arch)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    accum = cfg.grad_accum["train_4k"]
+    step_ms: list[float] = []
+    row: dict = {"phase": "train", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+                 "vocab": cfg.vocab_size, "dtype": cfg.dtype, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                 "grad_accum": accum, "microbatch": TRAIN_BATCH // accum, "steps": steps, "remat": cfg.remat}
+
+    def loader():
+        ds = SyntheticTokenDataset(10_000, vocab=cfg.vocab_size)
+        sampler = CheckpointableSampler(len(ds), batch_size=8, seed=0)
+        return build_lm_loader(ds, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, sampler=sampler, device=dev)
+
+    def timed(fn):
+        def run(*args):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        tcfg = TrainerConfig(ckpt_dir=d, ckpt_every=TRAIN_CKPT_AT if resume else 10**9, ckpt_keep=1, log_every=1)
+        t0 = time.monotonic()
+        trainer = Trainer(cfg, shape, tcfg=tcfg, device=dev)
+        row["params"] = trainer.model.param_count()
+        row["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in tree_items({"p": trainer.params, "o": trainer.opt_state}))
+        trainer.bundle.fn = timed(trainer.bundle.fn)
+        pipe, sampler = loader()
+        _zero_kernel_launches()
+        history, peaks = [], []
+        first = TRAIN_CKPT_AT if resume else steps
+        with pipe.auto_stop():
+            torch.cuda.reset_peak_memory_stats(dev)
+            history += trainer.fit(pipe, steps=first, sampler=sampler)["history"]
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            if resume:
+                row["resume"] = check_resume(dev, cfg, shape, tcfg, trainer, loader)
+                trainer.manager.every = 10**9  # the one checkpoint is step 4's
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                history += trainer.fit(pipe, steps=steps - first, sampler=sampler)["history"]
+                peaks.append(torch.cuda.max_memory_allocated(dev))
+            health = {**trainer.health(), "data_wait_s": trainer.data_wait_s, "step_s": trainer.step_s}
+            # one more step under the profiler, after the readings above
+            t_trace = time.monotonic()
+            row["step_trace"] = trace_step(dev, lambda: trainer.fit(pipe, steps=1, sampler=sampler), "gemm",
+                                           host_ops=False)
+            row["step_trace"]["seconds"] = time.monotonic() - t_trace
+            row["step_trace"]["note"] = f"step {steps + 1} under torch.profiler; kernel_ms sums the GEMM kernels"
+        launches = _kernel_launches()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms, history = step_ms[:steps], history[:steps]
+    steady = statistics.median(step_ms[1:])
+    row.update({
+        "step_ms": step_ms, "first_step_ms": step_ms[0], "step_ms_median_2_on": steady,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / steady * 1e3,
+        **health,
+        "loss": {h["step"]: h["loss"] for h in history if h["step"] in (1, steps)},
+        "grad_norm": {h["step"]: h["grad_norm"] for h in history if h["step"] in (1, steps)},
+        "losses": [h["loss"] for h in history],
+        "max_memory_allocated_gb": max(peaks) / 1e9, "kernel_launches": launches,
+        "reading": "the timings and bytes are readings, not gates", "seconds": time.monotonic() - t0,
+    })
+    emit(row)
+    if len(history) != steps or not all(math.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"train {arch}: {len(history)} of {steps} steps, losses {row['losses']}")
+    if any(launches.values()):
+        raise AssertionError(f"train {arch} launched a kernel: {launches}")
+
+
+def check_resume(dev, cfg, shape, tcfg, trainer, loader) -> dict:
+    """A fresh ``Trainer.from_checkpoint`` in the trainer's directory must hold
+    the trainer's state bit for bit (it took no step since its save), the
+    saved step and the saved sampler state, and then train 2 steps."""
+    from repro_torch.runtime import Trainer
+    from repro_torch.tree import tree_items
+
+    ckpt = pathlib.Path(tcfg.ckpt_dir) / f"step_{TRAIN_CKPT_AT:08d}"
+    saved_sampler = json.loads((ckpt / "meta.json").read_text())["sampler"]
+    pipe, sampler = loader()
+    t0 = time.monotonic()
+    resumed = Trainer.from_checkpoint(cfg, shape, sampler=sampler, tcfg=tcfg, device=dev)
+    restore_s = time.monotonic() - t0
+    want = dict(tree_items({"p": trainer.params, "o": trainer.opt_state}))
+    got = dict(tree_items({"p": resumed.params, "o": resumed.opt_state}))
+    unequal = [k for k in want if not (got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]))]
+    out = {"step": resumed.step, "leaves": len(want), "unequal_leaves": unequal,
+           "sampler_restored": sampler.state_dict() == saved_sampler, "restore_s": restore_s,
+           "ckpt_bytes": (ckpt / "arrays.npz").stat().st_size,
+           "snapshot_ms": trainer.manager.snapshot_ms}
+    with pipe.auto_stop():
+        hist = resumed.fit(pipe, steps=TRAIN_RESUME_STEPS, sampler=sampler)["history"]
+    out["resumed_steps"] = [h["step"] for h in hist]
+    out["resumed_losses"] = [h["loss"] for h in hist]
+    del resumed
+    if out["step"] != TRAIN_CKPT_AT or unequal or not out["sampler_restored"]:
+        raise AssertionError(f"resume: {out}")
+    if len(hist) != TRAIN_RESUME_STEPS or not all(math.isfinite(x) for x in out["resumed_losses"]):
+        raise AssertionError(f"resume: {out}")
+    return out
 
 
 def main() -> int:
@@ -865,6 +1099,10 @@ def main() -> int:
             phase_example(ds, dev, summary)
         phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
         phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
+        phase_train_check(dev, "qwen3-0.6b")
+        phase_train_check(dev, "mamba2-780m")
+        phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True)
+        phase_train(dev, "mamba2-780m", 2, resume=False)
     except Exception:
         traceback.print_exc()
         return 1

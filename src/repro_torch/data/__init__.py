@@ -1,7 +1,7 @@
 from .arena import ArenaClosed, SlabArena, SlotRef
 from .codec import decode_sample, encode_sample
 from .dataset import ArrayDataset, SyntheticImageDataset, SyntheticTokenDataset
-from .loader import build_image_loader
+from .loader import build_image_loader, build_lm_loader
 from .sampler import CheckpointableSampler
 from .tokenizer import ByteTokenizer
 from .transfer import DeviceDecode, DeviceTransfer, to_uint8_wire
@@ -18,6 +18,7 @@ __all__ = [
     "CheckpointableSampler",
     "ByteTokenizer",
     "build_image_loader",
+    "build_lm_loader",
     "DeviceDecode",
     "DeviceTransfer",
     "to_uint8_wire",

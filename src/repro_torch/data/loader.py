@@ -1,19 +1,26 @@
-"""The image loader: an SPDL pipeline wired for the paper's benchmark.
+"""The loaders: SPDL pipelines wired for the two workload families.
 
 ``build_image_loader`` — sample indices → slot assignment → read bytes (I/O)
 → decode+resize (GIL-releasing CPU, written in place into slab slots) →
 slab batch assembly → device transfer (concurrency=1) → the card.
 
-This is the PyTorch port of ``repro.data.loader.build_image_loader``; the
-pipeline, its options and their rules are the same (see that module's
-docstring for the memory model, chunked + fused execution, the checkpoint
-skip bounds and the failure semantics).  What differs is the device leg:
+``build_lm_loader`` — the LM-training pipeline the trainer consumes: index
+batches → read docs → decode and pack into (seq_len,) slab rows with
+positions and segment ids → slab batch assembly → device transfer.
+
+This is the PyTorch port of ``repro.data.loader``; the pipelines, their
+options and their rules are the same (see that module's docstring for the
+memory model, chunked + fused execution, the checkpoint skip bounds and the
+failure semantics).  What differs is the device leg:
 
 * ``device=`` names where batches go (``torch.device("cuda")`` when None);
   it takes the place of the JAX package's ``shardings``.
 * A CUDA loader allocates its slab ring in pinned host memory
   (``arena.pinned_alloc``), so the transfer's copy from a slab is
-  asynchronous on its own stream; a CPU loader keeps ``np.empty`` slabs.
+  asynchronous on its own stream, and a slab goes back to the ring only
+  after its copy's event; a CPU loader keeps ``np.empty`` slabs and the
+  transfer copies their rows.  Those two guards, not the hold window, keep
+  a delivered batch apart from a recycled slab (ROADMAP F-ref-3).
 * With ``device_decode=DeviceDecode(...)`` batches cross as uint8 and the
   fused ``dequant_normalize_augment`` CUDA kernel decodes them on the card
   (``kernels/csrc/dequant_normalize.cu``); on a CPU loader its plain
@@ -40,6 +47,7 @@ from .codec import (
     resize_nearest,
     resize_nearest_into,
 )
+from .packing import SequencePacker, collate
 from .sampler import CheckpointableSampler
 from .transfer import DeviceDecode, DeviceTransfer
 
@@ -383,3 +391,110 @@ def build_image_loader(
     pipe.add_stop_callback(arena.close)
     pipe.add_stop_callback(transfer.flush)
     return pipe
+
+
+def build_lm_loader(
+    dataset,
+    *,
+    seq_len: int,
+    batch_size: int,
+    sampler: CheckpointableSampler | None = None,
+    read_concurrency: int = 4,
+    decode_concurrency: int = 4,
+    num_threads: int = 8,
+    sink_buffer: int = 2,
+    device: torch.device | str | None = None,  # None = torch.device("cuda")
+    seed: int = 0,
+    zero_copy: bool = True,
+    arena_slabs: int | None = None,  # None = sized from the consumer window
+    chunk: int = 16,  # items per executor dispatch; 1 = per-item path
+    straggler_after: float | None = None,  # soft deadline on the read stage
+    trace=None,  # core.trace.Tracer: flight-recorder spans for every layer
+    transfer_chunk: int = 2,  # batches per transfer dispatch; 1 = per-batch
+) -> tuple[Pipeline, CheckpointableSampler]:
+    """Returns (pipeline, sampler); the sampler is checkpointed alongside
+    model state (``runtime/trainer.py``).  Each batch holds ``tokens``,
+    ``labels``, ``positions`` and ``segment_ids``, int32 (batch, seq_len)
+    tensors on ``device``.
+
+    The zero-copy path packs rows straight into a packed-rows slab (one
+    ``(batch, seq_len) int32`` buffer per field) and skips the collate
+    stage.  ``chunk`` applies to the read and decode+pack stages (the
+    packer stays ``concurrency=1``: its state is single-writer).
+    ``straggler_after`` arms the slow lane on the read stage only."""
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    if transfer_chunk < 1:
+        raise ValueError("transfer_chunk must be >= 1")
+    if straggler_after is not None and chunk <= 1:
+        raise ValueError("straggler_after requires chunk > 1 (see pipe())")
+    sampler = sampler or CheckpointableSampler(
+        len(dataset), batch_size=8, seed=seed, shuffle=True
+    )
+    packer = SequencePacker(seq_len)
+
+    def doc_ids():
+        for batch in sampler:
+            yield from batch
+
+    def read(i: int) -> bytes:
+        return dataset.read_bytes(i)
+
+    transfer = DeviceTransfer(
+        device, consumer_window=sink_buffer,
+        dispatch_chunk=transfer_chunk, tracer=trace,
+    )
+    doc_stream, cache_probe = _maybe_prefetch(doc_ids(), dataset)
+
+    if not zero_copy:
+        def pack(data: bytes) -> list[dict]:
+            return packer.add(decode_sample(data))  # 0..k completed rows
+
+        builder = (
+            PipelineBuilder()
+            .add_source(doc_stream, name="sampler")
+            .pipe(read, concurrency=read_concurrency, name="read",
+                  cache=cache_probe, chunk=chunk,
+                  straggler_after=straggler_after)
+            .pipe(pack, concurrency=1, name="decode+pack", chunk=chunk)  # stateful
+            .disaggregate(name="rows")
+            .aggregate(batch_size, drop_last=True, name="batch")
+            .pipe(collate, concurrency=decode_concurrency, name="collate")
+        )
+        pipe = (
+            _pipe_transfer(builder, transfer, transfer_chunk)
+            .add_sink(buffer_size=sink_buffer)
+            .build(num_threads=num_threads, trace=trace)
+        )
+        return pipe, sampler
+
+    row_shape = ((seq_len,), np.int32)
+    arena = SlabArena(
+        {k: row_shape for k in ("tokens", "labels", "positions", "segment_ids")},
+        batch_size=batch_size,
+        num_slabs=_ring_size(arena_slabs, transfer, transfer_chunk),
+        alloc=pinned_alloc if transfer.device.type == "cuda" else numpy_alloc,
+    )
+    next_slot = arena.slot_writer()  # only touched by the concurrency=1 packer
+
+    def pack_into(data: bytes) -> list:
+        return packer.add_into(decode_sample(data), next_slot)  # 0..k slot tickets
+
+    builder = (
+        PipelineBuilder()
+        .add_source(doc_stream, name="sampler")
+        .pipe(read, concurrency=read_concurrency, name="read",
+              cache=cache_probe, chunk=chunk,
+              straggler_after=straggler_after)
+        .pipe(pack_into, concurrency=1, name="decode+pack", chunk=chunk)  # stateful
+        .disaggregate(name="rows")
+        .aggregate_into(arena, batch_size, drop_last=True, name="batch")
+    )
+    pipe = (
+        _pipe_transfer(builder, transfer, transfer_chunk)
+        .add_sink(buffer_size=sink_buffer)
+        .build(num_threads=num_threads, trace=trace)
+    )
+    pipe.add_stop_callback(arena.close)
+    pipe.add_stop_callback(transfer.flush)
+    return pipe, sampler

@@ -1,5 +1,5 @@
-from .convert import params_from_reference
+from .convert import params_from_reference, tree_to_numpy
 from .model import Model
 from .params import init_params, param_count
 
-__all__ = ["Model", "init_params", "param_count", "params_from_reference"]
+__all__ = ["Model", "init_params", "param_count", "params_from_reference", "tree_to_numpy"]

@@ -1,14 +1,19 @@
-"""GQA/MHA attention (optionally qk-norm and QKV bias) for serving.
+"""GQA/MHA attention (optionally qk-norm and QKV bias).
 
-Two entry points:
+Three entry points:
+  - ``attn_train``: causal self-attention over packed documents (positions
+    and segment ids), differentiable, in plain PyTorch: the reference trains
+    through its jnp ``_sdpa``, plain attention up to ``attn_chunk`` keys
+    (2048 when unset) and a double-chunked online softmax beyond it, and so
+    does the port.  The ``flash_attention`` kernel has no backward and no
+    segment mask, so training never launches it;
   - ``attn_prefill``: causal self-attention over the prompt through the
     hand-written ``flash_attention`` kernel; writes the layer's K/V into
     the head of a preallocated cache;
   - ``attn_decode``: one new token against a preallocated cache, written
     in place, with plain masked attention over the cache's capacity.
 
-The reference's MLA (DeepSeek), ``attn_train`` and its chunked jnp
-attention are not ported yet (ROADMAP).
+The reference's MLA (DeepSeek) is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
@@ -24,6 +30,7 @@ from .params import ParamDef
 
 NEG_INF = -(2.0**30)  # large finite negative: avoids NaN from (-inf) - (-inf)
 FLASH_PAD = 64  # the prompt is padded to a multiple of this for the kernel's tiles
+Q_CHUNK = KV_CHUNK = 1024  # the reference's blocks for sequences past the threshold
 
 
 def attn_defs(cfg: ModelConfig) -> dict:
@@ -50,15 +57,92 @@ def attn_defs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _scores(q, k, q_pos, kv_pos, q_seg, kv_seg, scale):
+    """Masked f32 scores (B,K,G,Sq,Skv): f32 products of q (B,Sq,K,G,hd) and
+    k (B,Skv,K,hd), as ``preferred_element_type=float32`` makes them."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    mask = (q_pos[:, :, None] >= kv_pos[:, None, :]) & (q_seg[:, :, None] == kv_seg[:, None, :])
+    return torch.where(mask[:, None, None, :, :], s, NEG_INF)
+
+
 def _plain_attention(q, k, v, q_pos, kv_pos, q_seg, kv_seg, scale):
     """q: (B,Sq,K,G,hd), k/v: (B,Skv,K,hd). Returns (B,Sq,K,G,hd).
 
     Scores and softmax in f32; p is cast to v's dtype before p·v."""
-    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
-    mask = (q_pos[:, :, None] >= kv_pos[:, None, :]) & (q_seg[:, :, None] == kv_seg[:, None, :])
-    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_scores(q, k, q_pos, kv_pos, q_seg, kv_seg, scale), dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+
+
+def _kv_scan_attention(q, kc, vc, q_pos, pc, q_seg, gc, scale):
+    """Online softmax over pre-chunked KV for one q block.
+
+    q: (B,Sq,K,G,hd); kc/vc: (NC,B,ckv,K,hd); pc/gc: (NC,B,ckv).  Scores
+    of one kv chunk at a time, never (Sq x Skv)."""
+    b, sq, kh, g, _ = q.shape
+    m = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kh, g, vc.shape[-1]), dtype=torch.float32, device=q.device)
+    for kx, vx, px, gx in zip(kc, vc, pc, gc):
+        s = _scores(q, kx, q_pos, px, q_seg, gx, scale)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bqkgh", p.to(vx.dtype), vx).float()
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    l = l.clamp(min=1e-20)
+    return (acc / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, q_pos, kv_pos, q_seg, kv_seg, scale, q_chunk, kv_chunk):
+    """Flash-style double-chunked attention in plain PyTorch, the reference's
+    XLA fallback of its Pallas kernel: a loop over q blocks, each an online
+    softmax over kv chunks.  Keys are padded to a multiple of ``kv_chunk``
+    (position 2**30, segment -7: masked for every query), queries to one
+    of ``q_chunk`` (position -1, segment -9; cut off after).  Each q block
+    is recomputed in the backward pass instead of saving its scan's state,
+    as the reference's ``jax.checkpoint`` does."""
+    b, skv = k.shape[0], k.shape[1]
+    nkv = -(-skv // kv_chunk)
+    pad = nkv * kv_chunk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=2**30)
+        kv_seg = torch.nn.functional.pad(kv_seg, (0, pad), value=-7)
+    kc = k.reshape(b, nkv, kv_chunk, *k.shape[2:]).transpose(0, 1)
+    vc = v.reshape(b, nkv, kv_chunk, *v.shape[2:]).transpose(0, 1)
+    pc = kv_pos.reshape(b, nkv, kv_chunk).transpose(0, 1)
+    gc = kv_seg.reshape(b, nkv, kv_chunk).transpose(0, 1)
+
+    sq = q.shape[1]
+    if sq <= q_chunk:
+        return _kv_scan_attention(q, kc, vc, q_pos, pc, q_seg, gc, scale)
+
+    nq = -(-sq // q_chunk)
+    qpad = nq * q_chunk - sq
+    if qpad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, qpad))
+        q_pos = torch.nn.functional.pad(q_pos, (0, qpad), value=-1)
+        q_seg = torch.nn.functional.pad(q_seg, (0, qpad), value=-9)
+    ys = [
+        checkpoint(_kv_scan_attention, q[:, i:i + q_chunk], kc, vc, q_pos[:, i:i + q_chunk],
+                   pc, q_seg[:, i:i + q_chunk], gc, scale, use_reentrant=False)
+        for i in range(0, nq * q_chunk, q_chunk)
+    ]
+    return torch.cat(ys, dim=1)[:, :sq]
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, q_pos, kv_pos, q_seg, kv_seg):
+    """The reference's dispatch: plain attention up to ``attn_chunk`` keys
+    (2048 when unset), double-chunked online softmax beyond."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if k.shape[1] <= (cfg.attn_chunk or 2048):
+        return _plain_attention(q, k, v, q_pos, kv_pos, q_seg, kv_seg, scale)
+    return _chunked_attention(
+        q, k, v, q_pos, kv_pos, q_seg, kv_seg, scale, q_chunk=Q_CHUNK, kv_chunk=KV_CHUNK
+    )
 
 
 def _causal_flash(q, k, v):
@@ -115,6 +199,14 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bskh,khd->bsd") on o (B,S,H,hd) as one matrix product."""
     h, hd, d = wo.shape
     return o.reshape(*o.shape[:2], h * hd) @ wo.reshape(h * hd, d)
+
+
+def attn_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
+    """Causal attention over x (B,S,D) within each document: a query sees
+    the keys of its own segment at positions up to its own."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = _sdpa(cfg, _group(q, cfg.num_kv_heads), k, v, positions, positions, segment_ids, segment_ids)
+    return _out(o.reshape(*x.shape[:2], cfg.num_heads, cfg.resolved_head_dim), p["wo"])
 
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):

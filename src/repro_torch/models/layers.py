@@ -1,4 +1,4 @@
-"""Shared neural layers: norms, FFN, RoPE, embeddings and the head.
+"""Shared neural layers: norms, FFN, RoPE, embeddings, the head and the loss.
 
 Activations stay in the model's dtype (bf16 at full size) with f32
 reductions in the norms and RoPE, as in the reference.  Parameters are
@@ -69,9 +69,17 @@ def ffn_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: x * 1 / (1 + exp(-x)),
+    each op rounded to x's dtype.  ``F.silu`` rounds once, which in bf16
+    moves a third of the values by an ulp; the SSD scan carries that into
+    its state, and the FFN's weight gradients move by it."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = F.gelu(x @ p["w_up"], approximate="tanh")  # jax.nn.gelu's default
     return h @ p["w_down"]
@@ -149,6 +157,22 @@ def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
         return logits
     ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab_size
     return torch.where(ok, logits, torch.tensor(-(2.0**30), dtype=logits.dtype, device=logits.device))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean CE over masked positions, in f32.  logits (..., V), labels
+    integer (negative at masked positions), mask float (0/1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = labels.clamp(min=0).long()
+    ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:

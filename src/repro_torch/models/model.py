@@ -1,13 +1,14 @@
-"""Model: the end-to-end LM API that the server calls.
+"""Model: the end-to-end LM API that the trainer and the server call.
 
+- ``train_loss(params, batch)``              → (loss, metrics), differentiable
 - ``prefill(params, batch, seq_cap)``        → (last-position logits, cache)
 - ``decode_step(params, cache, tokens, pos)`` → (logits, cache updated in place)
 - ``cache_spec(batch, seq_cap)`` → the cache's shapes and dtypes;
   ``new_cache(batch, seq_cap, device)`` allocates it.
 
 Dense GQA decoders and attention-free Mamba2 (SSD) stacks.  MoE, MLA, the
-multi-codebook audio head, the vision prefix, MTP and ``train_loss`` come
-with later slices (ROADMAP §1).
+multi-codebook audio head, the vision prefix and MTP come with later
+slices (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .layers import (
     apply_embed,
     apply_head,
     apply_norm,
+    cross_entropy,
     dtype_of,
     embed_defs,
     head_defs,
@@ -59,6 +61,42 @@ class Model:
 
     def param_count(self) -> int:
         return param_count(self.param_defs())
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
+        return apply_embed(self.cfg, params["embed"], batch["tokens"])
+
+    def _lm_loss(self, params: dict, h: torch.Tensor, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        logits = mask_padded_vocab(cfg, apply_head(cfg, params["head"], params["embed"], h))
+        labels = batch["labels"]
+        if labels.dim() == 3:
+            labels = labels[..., 0]
+        return cross_entropy(logits, labels, (labels >= 0).float())
+
+    def train_loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: ``tokens`` and ``labels`` (B, S), labels negative where
+        masked; ``positions`` (default ``arange(S)``) and ``segment_ids``
+        (default zeros), which packed rows restart and number per document.
+        Returns the mean next-token loss and {"loss_lm", "aux", "loss"}
+        (``aux``, MoE's balance loss, is zero without MoE layers)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+        segment_ids = batch.get("segment_ids")
+        if segment_ids is None:
+            segment_ids = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+        for seg_params, segment in zip(params["segments"], cfg.segments()):
+            x = tf.segment_train(cfg, segment, seg_params, x, positions, segment_ids)
+        h = apply_norm(cfg, params["final_norm"], x)
+        loss = self._lm_loss(params, h, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss, {"loss_lm": loss, "aux": aux, "loss": loss}
 
     # ------------------------------------------------------------------
     # cache

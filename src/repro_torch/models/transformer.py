@@ -4,15 +4,19 @@
 super-blocks.  Parameters of a segment are stacked (leading "layers" dim),
 as in the reference, and a segment is applied by a Python loop over that
 dim, indexing views of the stacked weights and caches (the reference's
-``lax.scan``).  Serving only, with two mixers: GQA attention (``attn``,
-prefill in the ``flash_attention`` kernel) and the Mamba2 SSD block
-(``ssd``, prefill in the ``ssd_scan`` kernel).  The training apply waits
-for the training slice, and MLA and MoE blocks for theirs (ROADMAP §1).
+``lax.scan``).  Two mixers: GQA attention (``attn``, prefill in the
+``flash_attention`` kernel) and the Mamba2 SSD block (``ssd``, prefill in
+the ``ssd_scan`` kernel); training runs both in plain PyTorch under
+autograd, with each layer recomputed in the backward pass when
+``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan body).  MLA
+and MoE blocks wait for their slices (ROADMAP §1).
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention, ssm
@@ -20,6 +24,7 @@ from .layers import apply_ffn, apply_norm, ffn_defs, norm_defs
 from .params import ParamDef, tree_map_defs
 
 MIXER_DEFS = {"attn": attention.attn_defs, "ssd": ssm.ssd_defs}
+MIXER_TRAIN = {"attn": attention.attn_train, "ssd": ssm.ssd_block_train}
 MIXER_PREFILL = {"attn": attention.attn_prefill, "ssd": ssm.ssd_block_prefill}
 MIXER_DECODE = {"attn": attention.attn_decode, "ssd": ssm.ssd_block_decode}
 
@@ -54,6 +59,12 @@ def _ffn_residual(cfg: ModelConfig, p: dict, x):
         h = apply_norm(cfg, p["norm2"], x)
         x = x + apply_ffn(cfg, p["ffn"], h).to(x.dtype)
     return x
+
+
+def block_apply_train(cfg: ModelConfig, kind: str, p: dict, x, positions, segment_ids):
+    h = apply_norm(cfg, p["norm1"], x)
+    x = x + MIXER_TRAIN[kind](cfg, p["mixer"], h, positions, segment_ids).to(x.dtype)
+    return _ffn_residual(cfg, p, x)
 
 
 def block_apply_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions, cache: dict):
@@ -100,6 +111,28 @@ def _layer(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def segment_train(cfg: ModelConfig, segment, seg_params: dict, x, positions, segment_ids):
+    """The training apply of one ``(super_block_plan, n_repeat)`` segment.
+    With ``cfg.remat`` each repeat of the super-block keeps only its input
+    for the backward pass and runs again there (``remat_policy`` picks what
+    the reference's XLA keeps inside a layer; here nothing is kept)."""
+    plan, n_repeat = segment
+
+    def inner(x, layer):
+        for i, (kind, _) in enumerate(plan):
+            x = block_apply_train(
+                cfg, kind, _layer(seg_params["blocks"][i], layer), x, positions, segment_ids
+            )
+        return x
+
+    for layer in range(n_repeat):
+        if cfg.remat:
+            x = checkpoint(inner, x, layer, use_reentrant=False)
+        else:
+            x = inner(x, layer)
+    return x
 
 
 def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, positions):

@@ -1,3 +1,4 @@
 from .server import BatchServer, ServeResult
+from .trainer import Trainer, TrainerConfig
 
-__all__ = ["BatchServer", "ServeResult"]
+__all__ = ["BatchServer", "ServeResult", "Trainer", "TrainerConfig"]

@@ -45,7 +45,9 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     )
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.data.loader" in loaded
+    for module in ("repro_torch.data.loader", "repro_torch.optim.optimizer", "repro_torch.ckpt.checkpoint",
+                   "repro_torch.runtime.trainer", "repro_torch.launch.train"):
+        assert module in loaded
     assert [m for m in loaded if _is_reference(m) or m.split(".")[0] == "jax"] == []
 
 
@@ -69,7 +71,7 @@ def test_no_source_names_jax_or_the_reference_in_an_import(path):
 COPIED = [
     "core/_compat.py", "core/errors.py", "core/trace.py", "core/stats.py",
     "core/queues.py", "core/engine.py", "core/pipeline.py", "core/builder.py",
-    "data/codec.py", "data/dataset.py", "data/sampler.py", "data/tokenizer.py",
+    "data/codec.py", "data/dataset.py", "data/packing.py", "data/sampler.py", "data/tokenizer.py",
     *sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py")),
 ]
 
@@ -104,3 +106,38 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch, tmp_path
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchServer(model.cfg, params)
     assert BatchServer(model.cfg, params, device="cpu").device == torch.device("cpu")
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """``params_from_reference``, ``build_lm_loader``, ``build_train_step``,
+    ``Trainer`` and the training launcher mean CUDA unless given the CPU;
+    with no card they raise."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenDataset, build_lm_loader
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import params_from_reference
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32), "step": np.zeros((), np.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_reference(tree)
+    on_cpu = params_from_reference(tree, device="cpu")
+    assert on_cpu["step"].dtype == torch.int32 and on_cpu["step"].dim() == 0
+    ds = SyntheticTokenDataset(8, vocab=64, min_len=8, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_lm_loader(ds, seq_len=16, batch_size=2)
+    cfg, shape = get_smoke_config("qwen3-0.6b"), ShapeConfig("t", 16, 2, "train")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(cfg, shape)
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, shape, tcfg=tcfg)
+    assert Trainer(cfg, shape, tcfg=tcfg, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(sys, "argv", ["train", "--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main()

@@ -79,7 +79,7 @@ def test_prefill_and_decode_match_the_reference(reference_stack, arch, dtype):  
     ref_model = ref.Model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
     model = Model(cfg)
-    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
     assert model.param_count() == ref_model.param_count()
 
     rng = np.random.default_rng(0)
@@ -121,7 +121,7 @@ def test_prefill_and_decode_match_the_reference(reference_stack, arch, dtype):  
 def test_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F811
     ref_cfg, cfg = _configs(reference_stack, "bfloat16")
     ref_params = reference_stack.Model(ref_cfg).init(jax.random.PRNGKey(1))
-    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
     block = params["segments"][0]["blocks"][0]
     assert params["head"] == {}
     assert block["mixer"]["wq"].dtype == torch.bfloat16
@@ -134,7 +134,7 @@ def test_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F
 def test_ssd_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F811
     ref_cfg, cfg = _configs(reference_stack, "bfloat16", "mamba2-780m")
     ref_params = reference_stack.Model(ref_cfg).init(jax.random.PRNGKey(1))
-    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
     assert params["head"] == {}  # tied embeddings
     assert len(params["segments"]) == 1 and len(params["segments"][0]["blocks"]) == 1
     block = params["segments"][0]["blocks"][0]
@@ -208,7 +208,7 @@ def _f32_pair(ref, arch=ARCH):
     ref_cfg, cfg = _configs(ref, "float32", arch)
     ref_model = ref.Model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
-    return ref_model, ref_params, Model(cfg), params_from_reference(jax.tree.map(np.asarray, ref_params))
+    return ref_model, ref_params, Model(cfg), params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
 
 
 @pytest.mark.parametrize("s", [12, 13, 20])

@@ -38,7 +38,7 @@ def test_greedy_tokens_match_the_reference(reference_stack, arch):  # noqa: F811
     ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")
     cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
     ref_params = ref.Model(ref_cfg).init(jax.random.PRNGKey(0))
-    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
 
     kw = {"batch_size": 4, "prompt_len": 32, "max_new": 6}
     want = ref.BatchServer(ref_cfg, ref_params, **kw).generate(PROMPTS)
@@ -58,7 +58,7 @@ def test_a_prompt_length_off_the_kernel_tile_serves_the_reference_tokens(referen
     ref_cfg = dataclasses.replace(ref.get_smoke_config("qwen3-0.6b"), dtype="float32")
     cfg = dataclasses.replace(port_configs.get_smoke_config("qwen3-0.6b"), dtype="float32")
     ref_params = ref.Model(ref_cfg).init(jax.random.PRNGKey(0))
-    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
 
     kw = {"batch_size": 4, "prompt_len": 20, "max_new": 6}
     want = ref.BatchServer(ref_cfg, ref_params, **kw).generate(PROMPTS)

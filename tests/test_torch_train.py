@@ -1,0 +1,254 @@
+"""The port's training path held to the reference: the loss, its gradients
+and whole optimizer steps of ``build_train_step``.
+
+The reference ``Model`` is initialized on a smoke config (qwen3, a dense
+GQA decoder; mamba2, an attention-free SSD stack) from ``PRNGKey(0)`` and
+its parameters cross to the port; the same seeded packed batch (documents
+of 5-19 tokens packed into rows of 24, positions restarting and segment ids
+counting per document) goes through both.  Attention runs the reference's
+plain path (24 keys) and, with ``attn_chunk`` forced below the sequence,
+its chunked online softmax.
+
+Bars.  f32: the loss within 2e-5, each gradient leaf within 1e-4 of its
+largest |value|, parameters after 3 AdamW steps within 2e-5.  bf16: the
+loss within 2e-2 of its value; a gradient leaf within 2e-2 of its largest
+|value|, or within 1.5 times the reference's own bf16 rounding of that
+leaf (its bf16 gradient against its f32 gradient on the same weights and
+batch), whichever is larger.  Measured on the CPU over seeds 0-2: the
+reference's bf16 gradients are 1.9-3.0e-2 (qwen3) and 7.3-15.4e-2 (mamba2)
+of the largest value off its f32 ones, and the port's 2.2-3.2e-2 and
+4.1-5.3e-2 off the reference's, so a fixed 2e-2 would hold the port to less
+than the reference's own rounding.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch import configs as port_configs  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data.packing import SequencePacker, collate  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ks  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.models import Model, attention, params_from_reference, ssm, tree_to_numpy  # noqa: E402
+from repro_torch.optim import init_opt_state  # noqa: E402
+from repro_torch.tree import tree_items  # noqa: E402
+from torch_parity import reference_stack  # noqa: E402,F401
+
+ARCHS = ["qwen3-0.6b", "mamba2-780m"]
+B, S = 2, 24
+F32_LOSS, F32_GRAD, F32_PARAMS = 2e-5, 1e-4, 2e-5
+BF16_REL, BF16_OWN_ROUNDING = 2e-2, 1.5
+
+
+def packed_batch(vocab: int, b: int, s: int, seed: int) -> dict:
+    """b packed rows of s tokens from seeded documents of 5-19 tokens."""
+    rng = np.random.default_rng(seed)
+    packer, rows = SequencePacker(s), []
+    while len(rows) < b:
+        rows += packer.add(rng.integers(0, vocab, int(rng.integers(5, 20)), dtype=np.int32))
+    return collate(rows[:b])
+
+
+def _configs(ref, arch, dtype, **over):
+    return (dataclasses.replace(ref.get_smoke_config(arch), dtype=dtype, **over),
+            dataclasses.replace(port_configs.get_smoke_config(arch), dtype=dtype, **over))
+
+
+def _ref_grads(ref_model, params_np, batch):
+    (loss, _), grads = jax.value_and_grad(ref_model.train_loss, has_aux=True)(
+        jax.tree.map(jnp.asarray, params_np), {k: jnp.asarray(v) for k, v in batch.items()}
+    )
+    flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+    return float(loss), {jax.tree_util.keystr(p): np.asarray(g, np.float32) for p, g in flat}
+
+
+def _port_grads(model, params_np, batch):
+    params = params_from_reference(params_np, device="cpu")
+    leaves = [t.requires_grad_() for _, t in tree_items(params)]
+    loss, metrics = model.train_loss(params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    assert set(metrics) == {"loss", "loss_lm", "aux"}
+    return float(loss.detach()), {k: g.float().numpy() for (k, _), g in zip(tree_items(params), grads)}
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,over", [
+    ("qwen3-0.6b", {}), ("mamba2-780m", {}),
+    ("qwen3-0.6b", {"attn_chunk": 8}),  # 24 keys > 8: the chunked online softmax
+    ("mamba2-780m", {"remat": False}),  # layers kept for the backward pass, not recomputed
+])
+def test_train_loss_and_gradients_match_the_reference(reference_stack, arch, over, dtype):  # noqa: F811
+    ref = reference_stack
+    ref_cfg, cfg = _configs(ref, arch, dtype, **over)
+    ref_model, model = ref.Model(ref_cfg), Model(cfg)
+    params_np = jax.tree.map(np.asarray, ref_model.init(jax.random.PRNGKey(0)))
+    batch = packed_batch(cfg.vocab_size, B, S, seed=1)
+    assert (batch["labels"] < 0).any() and (batch["segment_ids"] > 0).any()
+
+    launches = (fa.flash_attention.launches, ks.ssd_scan.launches)
+    want_loss, want = _ref_grads(ref_model, params_np, batch)
+    got_loss, got = _port_grads(model, params_np, batch)
+    assert (fa.flash_attention.launches, ks.ssd_scan.launches) == launches  # no kernel in training
+    assert got.keys() == want.keys()
+    if dtype == "float32":
+        assert abs(got_loss - want_loss) <= F32_LOSS, (got_loss, want_loss)
+        for k in want:
+            assert _rel(got[k], want[k]) <= F32_GRAD, (k, _rel(got[k], want[k]))
+        return
+    assert abs(got_loss - want_loss) <= BF16_REL * abs(want_loss), (got_loss, want_loss)
+    f32_cfg = dataclasses.replace(ref_cfg, dtype="float32")
+    _, want_f32 = _ref_grads(ref.Model(f32_cfg), jax.tree.map(lambda a: np.asarray(a, np.float32), params_np), batch)
+    for k in want:
+        bar = max(BF16_REL, BF16_OWN_ROUNDING * _rel(want[k], want_f32[k]))
+        assert _rel(got[k], want[k]) <= bar, (k, _rel(got[k], want[k]), bar)
+
+
+def test_chunked_attention_matches_the_reference(reference_stack):  # noqa: F811
+    """The double-chunked online softmax at chunks of 8 over 20 tokens: three
+    q blocks and three kv chunks, both padded, with packed segments; output
+    and the gradients of q, k and v, f32."""
+    from repro.models import attention as ref_attention
+
+    rng = np.random.default_rng(4)
+    b, s, kh, g, hd = 2, 20, 2, 2, 16
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((b, s, kh, g, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    seg = np.array([[0] * 7 + [1] * 13, [0] * 12 + [1] * 8], np.int32)
+    pos = np.stack([np.r_[np.arange(7), np.arange(13)], np.r_[np.arange(12), np.arange(8)]]).astype(np.int32)
+    dout = rng.standard_normal((b, s, kh, g, hd)).astype(np.float32)
+    scale = hd ** -0.5
+
+    def ref_fn(q, k, v):
+        o = ref_attention._chunked_attention(q, k, v, pos, pos, seg, seg, scale, q_chunk=8, kv_chunk=8)
+        return jnp.sum(o * dout), o
+
+    (_, want), want_grads = jax.value_and_grad(ref_fn, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    p, sg = torch.from_numpy(pos), torch.from_numpy(seg)
+    got = attention._chunked_attention(qt, kt, vt, p, p, sg, sg, scale, q_chunk=8, kv_chunk=8)
+    grads = torch.autograd.grad((got * torch.from_numpy(dout)).sum(), (qt, kt, vt))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=F32_PARAMS, rtol=0)
+    for name, gt, gw in zip("qkv", grads, want_grads):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gw), atol=F32_PARAMS, rtol=0, err_msg=name)
+    plain = attention._plain_attention(qt, kt, vt, p, p, sg, sg, scale)
+    torch.testing.assert_close(got, plain, atol=F32_PARAMS, rtol=0)
+
+
+def test_ssd_chunked_matches_the_recurrence_and_the_reference(reference_stack):  # noqa: F811
+    """``ssd_chunked`` (chunk 8 over 24 steps, 4 heads in 2 groups) against
+    the stepwise ``ssd_recurrent`` and against the reference's scan, with
+    the gradients of x, dt, A, B and C."""
+    from repro.models import ssm as ref_ssm
+
+    rng = np.random.default_rng(5)
+    b, l, h, p, g, n = 2, 24, 4, 8, 2, 16
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.5, (b, l, h)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, (h,)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((b, l, g, n)).astype(np.float32) for _ in range(2))
+    dy = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, dt, A, Bm, Cm)]
+
+    y, h_fin = ssm.ssd_chunked(*args, chunk=8)
+    y_rec, h_rec = ssm.ssd_recurrent(*args)
+    torch.testing.assert_close(y, y_rec, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h_fin, h_rec, atol=1e-4, rtol=1e-4)
+
+    def ref_fn(*a):
+        y, hf = ref_ssm.ssd_chunked(*a, chunk=8)
+        return jnp.sum(y * dy) + jnp.sum(hf), (y, hf)
+
+    (_, (want_y, want_h)), want_grads = jax.value_and_grad(ref_fn, argnums=tuple(range(5)), has_aux=True)(
+        x, dt, A, Bm, Cm
+    )
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), atol=F32_PARAMS, rtol=1e-5)
+    np.testing.assert_allclose(h_fin.detach().numpy(), np.asarray(want_h), atol=F32_PARAMS, rtol=1e-5)
+    grads = torch.autograd.grad((y * torch.from_numpy(dy)).sum() + h_fin.sum(), args)
+    for name, gt, gw in zip(("x", "dt", "A", "B", "C"), grads, want_grads):
+        gw = np.asarray(gw)
+        assert _rel(gt.numpy(), gw) <= F32_GRAD, (name, _rel(gt.numpy(), gw))
+
+
+def _steps(ref, arch, dtype, accum, n_steps):
+    """n_steps of the reference's and the port's train step from the same
+    parameters on the same packed batches; returns both parameter trees and
+    both step metrics, as numpy."""
+    ref_cfg, cfg = _configs(ref, arch, dtype)
+    shape = ShapeConfig("t", S, 4, "train")
+    ref_bundle = ref.build_train_step(ref_cfg, None, shape, grad_accum=accum, donate=False)
+    bundle = build_train_step(cfg, shape, grad_accum=accum, device="cpu")
+    assert bundle.opt_cfg == bundle.opt_cfg.__class__(**dataclasses.asdict(ref_bundle.opt_cfg))
+    ref_params = ref_bundle.model.init(jax.random.PRNGKey(0))
+    ref_opt = ref.init_opt_state(ref_bundle.opt_cfg, ref_params)
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
+    opt = init_opt_state(bundle.opt_cfg, params)
+    got_m, want_m = [], []
+    for i in range(n_steps):
+        batch = packed_batch(cfg.vocab_size, 4, S, seed=10 + i)
+        ref_params, ref_opt, m = ref_bundle.jitted(ref_params, ref_opt, {k: jnp.asarray(v) for k, v in batch.items()})
+        want_m.append({k: float(v) for k, v in m.items()})
+        params, opt, m = bundle.fn(params, opt, batch)
+        got_m.append({k: float(v) for k, v in m.items()})
+    return (tree_to_numpy(params), tree_to_numpy(opt), got_m,
+            jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
+            jax.tree.map(lambda a: np.asarray(a, np.float32) if a.dtype != jnp.int32 else np.asarray(a), ref_opt),
+            want_m)
+
+
+def _flat(tree) -> dict:
+    return dict(tree_items(tree))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_three_adamw_steps_match_the_reference_f32(reference_stack, arch):  # noqa: F811
+    params, opt, got_m, ref_params, ref_opt, want_m = _steps(reference_stack, arch, "float32", 1, 3)
+    for got, want in zip(got_m, want_m):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert abs(got[k] - want[k]) <= F32_LOSS * max(1.0, abs(want[k])), (k, got[k], want[k])
+    ref_flat = _flat(ref_params)
+    for k, a in _flat(params).items():
+        np.testing.assert_allclose(a, ref_flat[k], atol=F32_PARAMS, rtol=0, err_msg=k)
+    ref_opt_flat = _flat(ref_opt)
+    assert _flat(opt).keys() == ref_opt_flat.keys()
+    assert int(opt["step"]) == int(ref_opt["step"]) == 3
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_bf16_step_matches_the_reference(reference_stack, arch):  # noqa: F811
+    """The step's metrics within 2e-2; each parameter within one bf16 ulp
+    of the reference's plus twice the step's lr: AdamW's first update is
+    +-lr an element whatever the gradient's size, so a gradient near zero
+    whose sign the two roundings disagree on moves its parameter 2 lr
+    apart (the zero-initialized biases)."""
+    params, _, got_m, ref_params, _, want_m = _steps(reference_stack, arch, "bfloat16", 1, 1)
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(got_m[0][k] - want_m[0][k]) <= BF16_REL * abs(want_m[0][k]), (k, got_m[0][k], want_m[0][k])
+    lr = want_m[0]["lr"]
+    ref_flat = _flat(ref_params)
+    for k, a in _flat(params).items():
+        w = ref_flat[k]
+        assert (np.abs(a - w) <= 2 * lr * (1 + 1e-3) + np.abs(w) * 2.0**-7).all(), (k, np.abs(a - w).max())
+
+
+def test_grad_accum_matches_the_reference(reference_stack):  # noqa: F811
+    """accum 2: microbatches of consecutive rows, gradients summed from zeros
+    in the parameters' dtype and halved, the last microbatch's metrics."""
+    params, opt, got_m, ref_params, ref_opt, want_m = _steps(reference_stack, "qwen3-0.6b", "float32", 2, 2)
+    for got, want in zip(got_m, want_m):
+        for k in want:
+            assert abs(got[k] - want[k]) <= F32_LOSS * max(1.0, abs(want[k])), (k, got[k], want[k])
+    ref_flat = _flat(ref_params)
+    for k, a in _flat(params).items():
+        np.testing.assert_allclose(a, ref_flat[k], atol=F32_PARAMS, rtol=0, err_msg=k)

@@ -72,8 +72,10 @@ def _dist_stub() -> dict:
 
 @pytest.fixture
 def reference_stack(monkeypatch):
-    """The reference's ``Model``, ``BatchServer`` and configs, imported with
-    a stub ``repro.dist`` (ROADMAP F-ref-1: the package does not exist).
+    """The reference's ``Model``, ``BatchServer``, configs and training path
+    (``build_train_step``, ``init_opt_state``, ``apply_update``, ``Trainer``,
+    the checkpoint functions and ``build_lm_loader``), imported with a stub
+    ``repro.dist`` (ROADMAP F-ref-1: the package does not exist).
 
     On teardown every module of the stack leaves ``sys.modules`` (and the
     ``repro`` package's attributes), so other test files of the same worker
@@ -89,11 +91,22 @@ def reference_stack(monkeypatch):
     for name, mod in _dist_stub().items():
         monkeypatch.setitem(sys.modules, name, mod)
     try:
+        from repro import ckpt, optim
         from repro.configs import get_smoke_config
+        from repro.data import build_lm_loader
+        from repro.launch.steps import build_train_step
         from repro.models import Model
+        from repro.runtime import Trainer, TrainerConfig
         from repro.runtime.server import BatchServer
 
-        yield types.SimpleNamespace(Model=Model, BatchServer=BatchServer, get_smoke_config=get_smoke_config)
+        yield types.SimpleNamespace(
+            Model=Model, BatchServer=BatchServer, get_smoke_config=get_smoke_config,
+            build_train_step=build_train_step, init_opt_state=optim.init_opt_state,
+            apply_update=optim.apply_update, OptConfig=optim.OptConfig, lr_schedule=optim.lr_schedule,
+            Trainer=Trainer, TrainerConfig=TrainerConfig, save_checkpoint=ckpt.save_checkpoint,
+            load_checkpoint=ckpt.load_checkpoint, CheckpointManager=ckpt.CheckpointManager,
+            latest_step=ckpt.latest_step, build_lm_loader=build_lm_loader,
+        )
     finally:
         for name in [k for k in sys.modules if _in_stack(k) and k not in before]:
             del sys.modules[name]

@@ -41,7 +41,7 @@ def spread(arch: str, seed: int) -> list[float]:
     ref_model = RefModel(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(seed))
     model = Model(cfg)
-    params = params_from_reference(jax.tree.map(np.asarray, ref_params))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     forced = rng.integers(0, cfg.vocab_size, (STEPS, B, 1), dtype=np.int32)
