@@ -23,8 +23,8 @@ and a copy of the same bytes), then runs
   - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
     seed-initialized weights), the prefill scan in ``ssd_scan``;
   - one training step of Qwen3-0.6B and of Mamba2-780m at full width, cut
-    to 2 layers, on the card against the same step on the CPU
-    (``train_check``);
+    to 2 layers, on the card against the same step on the CPU, in f32 with
+    TF32 off and in bf16 (``train_check``);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
     (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 8 steps,
     with a checkpoint at step 4 that a fresh ``Trainer.from_checkpoint``
@@ -74,6 +74,7 @@ HOST_COVER_CYCLES = 200_000  # a device sleep of ~0.1 ms, longer than a wrapper'
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TOL, atol and rtol
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
+TRAIN_F32_REL = 1e-4  # f32 train step, TF32 off: the CPU tests' f32 gradient bar, of the largest |cpu value|
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
 CHECK_SEQ, CHECK_BATCH = 512, 2  # train_check: one step, card against CPU, 2 layers
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
@@ -711,16 +712,14 @@ def serve_prompts(n: int) -> list[str]:
     return out
 
 
-def trace_step(dev: torch.device, fn, kernel_symbol: str, host_ops: bool = True) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: the card's busy time (the
-    sum of its kernels' times), the named kernel's share, and the top five.
-    ``host_ops=False`` records the card's activity only, which keeps a step
-    of some 280,000 kernels affordable to trace."""
+def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, the card's activity only:
+    the card's busy time (the sum of its kernels' times), the named kernel's
+    share, and the top five."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         sync(dev)
     on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -875,34 +874,43 @@ def one_train_step(cfg, dev: torch.device, params: dict, batch: dict) -> tuple[d
 
 
 def phase_train_check(dev: torch.device, arch: str) -> None:
-    """One training step of ``arch`` at full width, 2 layers, bf16, on the
-    card against the same step on the CPU from the same parameters
+    """One training step of ``arch`` at full width, 2 layers, on the card
+    against the same step on the CPU from the same parameters
     (``Model.init(0)`` on the CPU, copied) and one seeded packed batch:
-    loss and global gradient norm within 2e-2, and each gradient leaf's
-    largest difference over its largest |value|.  A bf16 gradient is only
-    as good as bf16's rounding, which moves the CPU's own bf16 gradient
-    1-4% of the largest value off its f32 one; two bf16 runs differ by
-    about 1.4x that.  So a leaf is held, on the card, to the CPU's f32
-    gradient of the same step: within 2e-2 or within 1.5x the CPU's own
-    bf16 rounding of that leaf, whichever is larger; its difference from
-    the CPU's bf16 leaf is reported beside it.  The step launches none of
-    K1-K4."""
+    the loss, the global gradient norm and each gradient leaf's largest
+    difference over its largest |value|, in two checks.
+
+    f32 (the config at ``dtype="float32"``, TF32 off): every one of them
+    within 1e-4, the bar the CPU tests hold the port's f32 gradients to
+    against the reference.  A wrong rounding or a dropped term fails here.
+
+    bf16 (the config as it trains): loss and grad norm within 2e-2.  A bf16
+    gradient is only as good as bf16's rounding, which moves the CPU's own
+    bf16 gradient 1-4% of the largest value off its f32 one; two bf16 runs
+    differ by about 1.4x that.  So a leaf is held, on the card, to the CPU's
+    f32 gradient of the same step: within 2e-2 or within 1.5x the CPU's own
+    bf16 rounding of that leaf, whichever is larger; its difference from the
+    CPU's bf16 leaf is reported beside it.  None of the steps launches any
+    of K1-K4."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.tree import tree_items, tree_map
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train_check needs TF32 off: torch.backends.cuda.matmul.allow_tf32 is set")
     cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    f32 = dataclasses.replace(cfg, dtype="float32")
     t0 = time.monotonic()
     host = Model(cfg).init(seed=0, device="cpu")
     batch = packed_batch(cfg.vocab_size, CHECK_BATCH, CHECK_SEQ, seed=6)
     _zero_kernel_launches()
     card_m, card_g = one_train_step(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), host), batch)
+    card32_m, card32_g = one_train_step(f32, dev, tree_map(lambda t: t.to(dev, torch.float32, copy=True), host), batch)
     sync(dev)
     launches = _kernel_launches()
     card_s = time.monotonic() - t0
     cpu_m, cpu_g = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
-    f32 = dataclasses.replace(cfg, dtype="float32")
-    _, f32_g = one_train_step(f32, torch.device("cpu"), tree_map(lambda t: t.float(), host), batch)
+    cpu32_m, f32_g = one_train_step(f32, torch.device("cpu"), tree_map(lambda t: t.float(), host), batch)
     names = [k for k, _ in tree_items(host)]
     leaves, over = {}, {}
     for name, g, want, w32 in zip(names, card_g, cpu_g, f32_g):
@@ -911,7 +919,10 @@ def phase_train_check(dev: torch.device, arch: str) -> None:
                         "cpu_bf16_vs_f32": own}
         if leaves[name]["vs_cpu_f32"] > max(MODEL_REL, OWN_ROUNDING * own):
             over[name] = leaves[name]
+    leaves32 = {name: _rel_err(g, want, name) for name, g, want in zip(names, card32_g, f32_g)}
+    over.update({f"f32 {k}": v for k, v in leaves32.items() if v > TRAIN_F32_REL})
     scalars = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm")}
+    scalars32 = {k: abs(card32_m[k] - cpu32_m[k]) / abs(cpu32_m[k]) for k in ("loss", "grad_norm")}
     emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "batch": CHECK_BATCH, "seq": CHECK_SEQ, "dtype": cfg.dtype,
           "documents_in_batch": int(batch["segment_ids"].max()) + 1,
@@ -920,9 +931,14 @@ def phase_train_check(dev: torch.device, arch: str) -> None:
           "rel_err": scalars, "max_leaf_rel_err": max(v["rel_err"] for v in leaves.values()),
           "leaves": leaves, "bar": f"loss, grad_norm: card vs cpu <= {MODEL_REL}; a leaf: vs_cpu_f32 <= "
           f"max({MODEL_REL}, {OWN_ROUNDING} x cpu_bf16_vs_f32), of the largest |cpu value|",
+          "f32": {"loss": {"card": card32_m["loss"], "cpu": cpu32_m["loss"]},
+                  "grad_norm": {"card": card32_m["grad_norm"], "cpu": cpu32_m["grad_norm"]},
+                  "rel_err": scalars32, "max_leaf_rel_err": max(leaves32.values()), "leaves": leaves32,
+                  "bar": f"loss, grad_norm and every leaf: card vs cpu <= {TRAIN_F32_REL} of the largest "
+                  "|cpu value|, TF32 off"},
           "kernel_launches": launches, "card_seconds": card_s, "seconds": time.monotonic() - t0})
-    if any(v > MODEL_REL for v in scalars.values()) or over:
-        raise AssertionError(f"train_check {arch} over the bar: {scalars} {over}")
+    if any(v > MODEL_REL for v in scalars.values()) or any(v > TRAIN_F32_REL for v in scalars32.values()) or over:
+        raise AssertionError(f"train_check {arch} over the bar: {scalars} {scalars32} {over}")
     if any(launches.values()):
         raise AssertionError(f"train_check {arch} launched a kernel: {launches}")
 
@@ -990,8 +1006,7 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool) -> None:
             health = {**trainer.health(), "data_wait_s": trainer.data_wait_s, "step_s": trainer.step_s}
             # one more step under the profiler, after the readings above
             t_trace = time.monotonic()
-            row["step_trace"] = trace_step(dev, lambda: trainer.fit(pipe, steps=1, sampler=sampler), "gemm",
-                                           host_ops=False)
+            row["step_trace"] = trace_step(dev, lambda: trainer.fit(pipe, steps=1, sampler=sampler), "gemm")
             row["step_trace"]["seconds"] = time.monotonic() - t_trace
             row["step_trace"]["note"] = f"step {steps + 1} under torch.profiler; kernel_ms sums the GEMM kernels"
         launches = _kernel_launches()

@@ -5,8 +5,9 @@
 slab batch assembly → device transfer (concurrency=1) → the card.
 
 ``build_lm_loader`` — the LM-training pipeline the trainer consumes: index
-batches → read docs → decode and pack into (seq_len,) slab rows with
-positions and segment ids → slab batch assembly → device transfer.
+batches → read docs → decode and pack into (seq_len,) rows with positions
+and segment ids → slot assignment → row copied into its slab slot → slab
+batch assembly → device transfer.
 
 This is the PyTorch port of ``repro.data.loader``; the pipelines, their
 options and their rules are the same (see that module's docstring for the
@@ -25,6 +26,10 @@ failure semantics).  What differs is the device leg:
   fused ``dequant_normalize_augment`` CUDA kernel decodes them on the card
   (``kernels/csrc/dequant_normalize.cu``); on a CPU loader its plain
   PyTorch version runs instead.
+* ``build_lm_loader``'s zero-copy path binds slab slots after the packer,
+  one row at a time, and copies each row into its slot.  The JAX package's
+  packer binds them inside its chunk and blocks for good when one chunk
+  completes more rows than the ring holds (ROADMAP F-ref-4).
 
 The slab ring keeps the JAX package's size (``_ring_size``): the transfer's
 hold window plus the slabs in flight.
@@ -417,11 +422,15 @@ def build_lm_loader(
     ``labels``, ``positions`` and ``segment_ids``, int32 (batch, seq_len)
     tensors on ``device``.
 
-    The zero-copy path packs rows straight into a packed-rows slab (one
+    The zero-copy path copies each packed row into a slab slot (one
     ``(batch, seq_len) int32`` buffer per field) and skips the collate
-    stage.  ``chunk`` applies to the read and decode+pack stages (the
-    packer stays ``concurrency=1``: its state is single-writer).
-    ``straggler_after`` arms the slow lane on the read stage only."""
+    stage.  Slots are bound one row at a time after the packer, not inside
+    its chunk: a chunk of documents much longer than ``seq_len`` can
+    complete more rows than the ring holds, and a packer that bound its own
+    rows would wait for slots that only those rows could free.  ``chunk``
+    applies to the read, decode+pack and write stages (the packer stays
+    ``concurrency=1``: its state is single-writer).  ``straggler_after``
+    arms the slow lane on the read stage only."""
     if chunk < 1:
         raise ValueError("chunk must be >= 1")
     if transfer_chunk < 1:
@@ -446,18 +455,21 @@ def build_lm_loader(
     )
     doc_stream, cache_probe = _maybe_prefetch(doc_ids(), dataset)
 
-    if not zero_copy:
-        def pack(data: bytes) -> list[dict]:
-            return packer.add(decode_sample(data))  # 0..k completed rows
+    def pack(data: bytes) -> list[dict]:
+        return packer.add(decode_sample(data))  # 0..k completed rows
 
+    builder = (
+        PipelineBuilder()
+        .add_source(doc_stream, name="sampler")
+        .pipe(read, concurrency=read_concurrency, name="read",
+              cache=cache_probe, chunk=chunk,
+              straggler_after=straggler_after)
+        .pipe(pack, concurrency=1, name="decode+pack", chunk=chunk)  # stateful
+        .disaggregate(name="rows")
+    )
+    if not zero_copy:
         builder = (
-            PipelineBuilder()
-            .add_source(doc_stream, name="sampler")
-            .pipe(read, concurrency=read_concurrency, name="read",
-                  cache=cache_probe, chunk=chunk,
-                  straggler_after=straggler_after)
-            .pipe(pack, concurrency=1, name="decode+pack", chunk=chunk)  # stateful
-            .disaggregate(name="rows")
+            builder
             .aggregate(batch_size, drop_last=True, name="batch")
             .pipe(collate, concurrency=decode_concurrency, name="collate")
         )
@@ -475,19 +487,18 @@ def build_lm_loader(
         num_slabs=_ring_size(arena_slabs, transfer, transfer_chunk),
         alloc=pinned_alloc if transfer.device.type == "cuda" else numpy_alloc,
     )
-    next_slot = arena.slot_writer()  # only touched by the concurrency=1 packer
 
-    def pack_into(data: bytes) -> list:
-        return packer.add_into(decode_sample(data), next_slot)  # 0..k slot tickets
+    def write(item):
+        row, ref = item
+        for k, view in ref.views().items():
+            view[:] = row[k]
+        return ref
 
     builder = (
-        PipelineBuilder()
-        .add_source(doc_stream, name="sampler")
-        .pipe(read, concurrency=read_concurrency, name="read",
-              cache=cache_probe, chunk=chunk,
-              straggler_after=straggler_after)
-        .pipe(pack_into, concurrency=1, name="decode+pack", chunk=chunk)  # stateful
-        .disaggregate(name="rows")
+        builder
+        # one slot per row, each row downstream as soon as it is bound
+        .pipe(arena.binder(), concurrency=1, name="slot")
+        .pipe(write, concurrency=1, name="write", chunk=chunk)
         .aggregate_into(arena, batch_size, drop_last=True, name="batch")
     )
     pipe = (

@@ -38,11 +38,7 @@ def main() -> None:
         name = "train_4k" if args.seq_len == 4096 else f"train_{args.seq_len}"
         shape = ShapeConfig(name, args.seq_len, args.batch, "train")
 
-    # documents no longer than a row: a pack chunk of long documents can
-    # need more slab rows than the ring holds (ROADMAP F-ref-4)
-    ds = SyntheticTokenDataset(
-        10_000, vocab=cfg.vocab_size, min_len=min(64, shape.seq_len), max_len=min(2048, shape.seq_len)
-    )
+    ds = SyntheticTokenDataset(10_000, vocab=cfg.vocab_size)
     sampler = CheckpointableSampler(len(ds), batch_size=8)
     pipe, sampler = build_lm_loader(
         ds, seq_len=shape.seq_len, batch_size=shape.global_batch, sampler=sampler,

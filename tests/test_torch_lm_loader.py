@@ -7,7 +7,11 @@ order packed by ``SequencePacker`` directly.  The reference is read on its
 collate path: its zero-copy path can deliver a batch from a recycled slab
 (ROADMAP F-ref-3), which the port's guards rule out, so the port's
 zero-copy path is also run past several slab rings against its collate path.
+Documents many rows long (one packer chunk completing more rows than the
+slab ring holds) must not block the port's zero-copy path (ROADMAP F-ref-4).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -24,8 +28,11 @@ SEQ, BATCH, SEED = 64, 4, 7
 FIELDS = ("tokens", "labels", "positions", "segment_ids")
 
 
-def _dataset(cls):
-    return cls(200, vocab=1000, min_len=16, max_len=80, seed=3)
+LONG = dict(min_len=300, max_len=900)  # 5-14 rows a document: a chunk of 16 fills ~150 rows
+
+
+def _dataset(cls, min_len=16, max_len=80):
+    return cls(200, vocab=1000, min_len=min_len, max_len=max_len, seed=3)
 
 
 def _drain(pipe, n: int) -> list[dict]:
@@ -39,8 +46,8 @@ def _drain(pipe, n: int) -> list[dict]:
     return out
 
 
-def _ground_truth(n: int) -> list[dict]:
-    ds = _dataset(SyntheticTokenDataset)
+def _ground_truth(n: int, **lengths) -> list[dict]:
+    ds = _dataset(SyntheticTokenDataset, **lengths)
     sampler = CheckpointableSampler(len(ds), batch_size=8, seed=SEED, shuffle=True)
     packer, rows = SequencePacker(SEQ), []
     for ids in sampler:
@@ -51,9 +58,9 @@ def _ground_truth(n: int) -> list[dict]:
     return [collate(rows[j * BATCH:(j + 1) * BATCH]) for j in range(n)]
 
 
-def _port(zero_copy: bool, **kw):
+def _port(zero_copy: bool, lengths: dict | None = None, **kw):
     pipe, _ = build_lm_loader(
-        _dataset(SyntheticTokenDataset), seq_len=SEQ, batch_size=BATCH, num_threads=4,
+        _dataset(SyntheticTokenDataset, **(lengths or {})), seq_len=SEQ, batch_size=BATCH, num_threads=4,
         seed=SEED, zero_copy=zero_copy, device="cpu", **kw,
     )
     return pipe
@@ -105,3 +112,28 @@ def test_delivered_batches_do_not_alias_slabs():
     for g, t in zip(held, truth):
         for k in FIELDS:
             np.testing.assert_array_equal(g[k].numpy(), t[k], err_msg=k)
+
+
+@pytest.mark.parametrize("zero_copy", [True, False])
+def test_documents_longer_than_the_slab_ring(zero_copy):
+    """Each 16-document packer chunk completes about 150 rows, several times
+    the ring's 24-36: the zero-copy path binds slots after the packer, so
+    the batches still come, equal to the reference's and to ground truth."""
+    n = 12
+    ref_pipe, _ = jbuild_lm_loader(
+        _dataset(JTokens, **LONG), seq_len=SEQ, batch_size=BATCH, num_threads=4, seed=SEED, zero_copy=False
+    )
+    want = _drain(ref_pipe, n)
+    pipe, got = _port(zero_copy, LONG), []
+    reader = threading.Thread(target=lambda: got.extend(_drain(pipe, n)), daemon=True)
+    reader.start()
+    reader.join(timeout=60)
+    if reader.is_alive():
+        pipe.stop()  # closes the arena, which wakes a blocked slot wait
+        pytest.fail("the loader blocked")
+    truth = _ground_truth(n, **LONG)
+    assert len(got) == len(want) == n
+    for g, w, t in zip(got, want, truth):
+        for k in FIELDS:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            np.testing.assert_array_equal(g[k], t[k], err_msg=k)

@@ -30,8 +30,6 @@ ARCH = "qwen3-0.6b"
 
 def make_parts(tmp_path, *, ckpt_every=5, seed=0, dataset=SyntheticTokenDataset, loader=build_lm_loader, **kw):
     cfg = get_smoke_config(ARCH)
-    # documents no longer than a row: a pack chunk of longer ones can need
-    # more slab rows than the ring holds (ROADMAP F-ref-4)
     ds = dataset(200, vocab=cfg.vocab_size, min_len=8, max_len=32, seed=3)
     sampler = CheckpointableSampler(len(ds), batch_size=4, seed=seed)
     pipe, sampler = loader(
