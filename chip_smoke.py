@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's image path, its LM serving path and its LM
-training path on one CUDA card and check them.
+"""Drive the PyTorch port's image path, its LM serving path (dense, SSD and
+Mixture-of-Experts models) and its LM training path on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -18,13 +19,24 @@ and a copy of the same bytes), then runs
     pads it to K3's 64-row tiles (``prefill_ragged``), Mamba2's scans it in
     one chunk of 20 steps, not a multiple of K4's 16-row tiles
     (``prefill_ragged_ssd``);
+  - ``apply_moe`` at Granite-MoE-1B-A400M's prefill shape on the card
+    against the CPU, in f32 and bf16, and under
+    ``torch.cuda.set_sync_debug_mode("error")`` (``moe``);
+  - Granite-MoE-1B-A400M at full width, cut to 2 layers, on the card
+    against the CPU in f32 with TF32 off (every route equal) and in bf16,
+    and Jamba-1.5-Large (2 layers: attention with its dense FFN, then SSD
+    with a 16-expert MoE; K3 and K4 in one stack) in bf16; every MoE
+    route that differs is printed with its probability gap;
   - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
     seed-initialized weights), prefill attention in ``flash_attention``;
   - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
     seed-initialized weights), the prefill scan in ``ssd_scan``;
-  - one training step of Qwen3-0.6B and of Mamba2-780m at full width, cut
-    to 2 layers, on the card against the same step on the CPU, in f32 with
-    TF32 off and in bf16 (``train_check``);
+  - ``BatchServer`` on Granite-MoE-1B-A400M at full width and depth (24
+    attention layers, each FFN 32 experts top 8), K3 in its prefill;
+  - one training step of Qwen3-0.6B, Mamba2-780m and Granite-MoE-1B-A400M
+    at full width, cut to 2 layers, on the card against the same step on
+    the CPU, in f32 with TF32 off and in bf16 (``train_check``; Granite's
+    aux loss and routes too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
     (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 8 steps,
     with a checkpoint at step 4 that a fresh ``Trainer.from_checkpoint``
@@ -52,10 +64,12 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))  # route_check
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -75,6 +89,8 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TO
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
 TRAIN_F32_REL = 1e-4  # f32 train step, TF32 off: the CPU tests' f32 gradient bar, of the largest |cpu value|
+SWAP_GAP = 1e-2  # bf16: a MoE route may differ from the CPU's only where its k-th and (k+1)-th probabilities are closer
+SWAP_GAP_F32 = 1e-5  # f32, TF32 off: the same, for rounding some 1e-6 of a value
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
 CHECK_SEQ, CHECK_BATCH = 512, 2  # train_check: one step, card against CPU, 2 layers
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
@@ -519,6 +535,8 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("block_k128_gqa4", 2, 8, 2, 384, 384, 64, bf16, True, 128, 128),  # 3 steps of 128 keys
         ("ragged_rows", 1, 4, 2, 96, 192, 128, bf16, True, 32, 64),  # sq not a multiple of 64 rows
         ("f32_hd64", 2, 8, 2, 384, 384, 64, f32, False, 128, 64),
+        ("granite", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 64, bf16, True, 128, 128),  # Granite-MoE's prefill
+        ("jamba", 2, 64, 8, 128, 128, 128, bf16, True, 128, 128),  # Jamba's model_check prefill
     ]
     ptxas = _build.ptxas("flash_attention")
     entry = summary["flash_attention"]
@@ -536,18 +554,21 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         if row["over_bar"]:
             emit(row)
             raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
-        if name in ("main", "f32"):
+        if name in ("main", "f32", "granite"):
             row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
             ops = 4 * hd * causal_pairs(sq, skv, causal) * b * h
             row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S, card))
-        if name == "main":
-            row["ptxas"] = ptxas  # both kernels, each instantiation
+        if name in ("main", "granite"):
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
             row["library_ms"] = time_ms(library_attention(q, k, v, causal), flush)
             row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
             row["over_library"] = row["ms"] / row["library_ms"]
             row["over_bound"] = row["ms"] / row["bound_ms"]
+        if name == "granite":
+            entry["granite"] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name == "main":
+            row["ptxas"] = ptxas  # both kernels, each instantiation
             per_head = k3_tiles(sq, skv, causal, bk)
             staged = b * h * (per_head["kv_tiles_loaded"] * 2 * 64 * hd + sq * hd) * q.element_size()
             row["tiles"] = {**per_head, "staged_bytes": staged, "staged_tb_per_s": staged / row["ms"] * 1e-9,
@@ -599,6 +620,7 @@ def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
         ("ragged_chunk4", (2, 300, 4, 64, 1, 128), 4, torch.bfloat16),
         ("p48_n48", (1, 192, 3, 48, 1, 48), 96, torch.bfloat16),
         ("p16_n112_g2", (1, 300, 2, 16, 2, 112), 100, torch.bfloat16),
+        ("jamba", (2, 128, 256, 64, 8, 128), 128, torch.bfloat16),  # Jamba's model_check prefill
     ]
     ptxas = _build.ptxas("ssd_scan")
     entry = summary["ssd_scan"]
@@ -647,59 +669,233 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "model_check") -> None:
-    """``arch`` at full width, 2 layers (the CPU run's sake), bf16: the port
-    on the card against the same model and weights on the CPU, prefill of
-    ``seq`` tokens then 4 forced decode steps, logits and every cache entry
-    (k/v of attention blocks, the ssm state and conv window of SSD blocks).
-    The card's prefill launches one kernel a layer (K3 or K4), counted."""
+def condition_attention(cfg, params: dict) -> dict:
+    """``params`` with each attention block's ``wq`` and ``wk`` scaled, in
+    place, as if drawn at fan-in d_model: by sqrt(heads / d_model) and
+    sqrt(kv_heads / d_model).  The reference's init draws them with fan-in
+    over the heads dim (16 and 8 for Granite), so without qk_norm a score
+    has a spread of about 90 and attention is nearly one-hot: any rounding
+    moves the weights of near-tied keys far, in the card's run and the
+    CPU's alike, and a card-against-CPU check then measures that and not
+    the port.  The checks compare the port with itself, so they run on
+    weights where it is well conditioned."""
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    for seg in params["segments"]:
+        for blk in seg["blocks"]:
+            if "wq" in blk["mixer"]:
+                blk["mixer"]["wq"].mul_((h / d) ** 0.5)
+                blk["mixer"]["wk"].mul_((kv / d) ** 0.5)
+    return params
+
+
+def serve_run(model, params, tokens, forced, device, vocab: int, replay: list | None = None) -> dict:
+    """A prefill of ``tokens`` then one decode step a row of ``forced`` on
+    ``device``: the logits (vocab columns), the prefill cache (a copy), the
+    final cache, and each MoE layer's router probabilities and expert
+    choices in call order (``replay``: another run's choices to take)."""
+    import route_check
+    from repro_torch.tree import tree_map
+
+    s, steps = tokens.shape[1], forced.shape[0]
+    with route_check.RouteRecorder(replay) as routes:
+        logits, cache = model.prefill(params, {"tokens": tokens.to(device)}, seq_cap=s + steps)
+        out = {"logits": [logits[:, :vocab]], "prefill_cache": tree_map(lambda t: t.clone(), cache)}
+        for t in range(steps):
+            logits, cache = model.decode_step(params, cache, forced[t].to(device), s + t)
+            out["logits"].append(logits[:, :vocab])
+    out["final_cache"], out["probs"], out["idx"] = cache, routes.probs, routes.idx
+    return out
+
+
+def output_errors(got: dict, want: dict) -> dict:
+    """Each output of ``serve_run`` (logits, every cache entry), its
+    largest |got - want| over the largest |want|."""
+    worst: dict[str, float] = {}
+
+    def note(what, g, w):
+        worst[what] = max(worst.get(what, 0.0), _rel_err(g, w, what))
+
+    for call, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+        note("prefill_logits" if call == 0 else "decode_logits", g, w)
+    for when in ("prefill", "final"):
+        for seg, want_seg in zip(got[f"{when}_cache"], want[f"{when}_cache"]):
+            for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+                for name in blk:
+                    note(f"{when}_cache_{name}", blk[name], want_blk[name])
+    return worst
+
+
+def route_row(cfg, want: list, got: list, diffs: list | None = None) -> dict:
+    """Every (token, MoE layer) whose choice differs between two runs'
+    records (``diffs``, default ``route_check.compare`` of them), with the
+    gap bar of the runs' dtype, and the largest difference of the two
+    runs' router probabilities."""
+    import route_check
+
+    diffs = route_check.compare(cfg, want, got) if diffs is None else diffs
+    row = route_check.summary(diffs, sum(p.shape[0] * p.shape[1] for p in want))
+    row["swap_gap_bar"] = SWAP_GAP_F32 if cfg.dtype == "float32" else SWAP_GAP
+    row["probs_max_abs_diff"] = max((float(np.abs(a - b).max()) for a, b in zip(want, got)), default=0.0)
+    return row
+
+
+def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "model_check",
+                      dtype: str | None = None, conditioned: bool = False) -> None:
+    """``arch`` at full width, 2 layers (the CPU run's sake), in its own
+    dtype or ``dtype``: the port on the card against the same model and
+    weights on the CPU, prefill of ``seq`` tokens then 4 forced decode
+    steps, logits and every cache entry (k/v of attention blocks, the ssm
+    state and conv window of SSD blocks), each within MODEL_REL (bf16) or
+    TRAIN_F32_REL (f32, TF32 off) of its largest CPU value.  The card's
+    prefill launches one kernel a layer, K3 for attention and K4 for SSD,
+    counted.  With ``conditioned`` the seed-0 weights go through
+    ``condition_attention`` first, on both sides.
+
+    MoE layers route discretely (``tools/route_check.py``): the CPU runs
+    first and records each layer's expert choices, and the card replays
+    them, so a near-tie that rounding breaks the other way cannot move
+    other tokens' outputs.  The card's own choices are compared with the
+    CPU's and every (token, layer) that differs is printed with the CPU's
+    gap between its k-th and (k+1)-th probability: a swap at a gap over
+    SWAP_GAP (bf16) or SWAP_GAP_F32 (f32) fails."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, **({"dtype": dtype} if dtype else {}))
+    bar = TRAIN_F32_REL if cfg.dtype == "float32" else MODEL_REL
     model = Model(cfg)
     b, s, steps = 2, seq, 4
     rng = torch.Generator(device="cpu").manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=rng)
     forced = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=rng)
-    worst: dict[str, float] = {}
-
-    def note(what, got, want):
-        worst[what] = max(worst.get(what, 0.0), _rel_err(got, want, what))
-
-    def caches(when, cache, want_cache):
-        for seg, want_seg in zip(cache, want_cache):
-            for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
-                for name in blk:
-                    note(f"{when}_cache_{name}", blk[name], want_blk[name])
-
     t0 = time.monotonic()
     with torch.inference_mode():
         params = model.init(seed=0, device=dev)
+        if conditioned:
+            condition_attention(cfg, params)
         host_params = tree_map(lambda t: t.cpu(), params)
-        before = flash_attention.flash_attention.launches + ssd_scan.ssd_scan.launches
-        logits, cache = model.prefill(params, {"tokens": tokens.to(dev)}, seq_cap=s + steps)
-        launches = flash_attention.flash_attention.launches + ssd_scan.ssd_scan.launches - before
-        want_logits, want_cache = model.prefill(host_params, {"tokens": tokens}, seq_cap=s + steps)
-        # the padded vocab columns hold -2**30 on both sides: leave them out of "largest value"
-        note("prefill_logits", logits[:, :cfg.vocab_size], want_logits[:, :cfg.vocab_size])
-        caches("prefill", cache, want_cache)
-        for t in range(steps):
-            logits, cache = model.decode_step(params, cache, forced[t].to(dev), s + t)
-            want_logits, want_cache = model.decode_step(host_params, want_cache, forced[t], s + t)
-            note("decode_logits", logits[:, :cfg.vocab_size], want_logits[:, :cfg.vocab_size])
-        caches("final", cache, want_cache)
-    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype, "prefill_launches": launches,
-          "max_rel_err_vs_cpu": worst, "bar": f"max |card - cpu| <= {MODEL_REL} * max |cpu|",
-          "seconds": time.monotonic() - t0})
-    over = {k: v for k, v in worst.items() if v > MODEL_REL}
+        cpu = serve_run(model, host_params, tokens, forced, torch.device("cpu"), cfg.vocab_size)
+        del host_params
+        cpu_s = time.monotonic() - t0
+        _zero_kernel_launches()
+        card = serve_run(model, params, tokens, forced, dev, cfg.vocab_size, cpu["idx"] if cfg.moe else None)
+        sync(dev)
+        launches = {"flash_attention": flash_attention.flash_attention.launches,
+                    "ssd_scan": ssd_scan.ssd_scan.launches}
+        del params
+        worst = output_errors(card, cpu)
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype, "prefill_launches": launches,
+           "weights": "seed 0, wq/wk at fan-in d_model (condition_attention)" if conditioned else "seed 0",
+           "max_rel_err_vs_cpu": worst, "bar": f"max |card - cpu| <= {bar} * max |cpu|", "cpu_seconds": cpu_s,
+           "seconds": time.monotonic() - t0}
+    if cfg.moe is not None:
+        row["routes"] = route_row(cfg, cpu["probs"], card["probs"])
+        row["routes"]["note"] = "the card replays the CPU's choices; these are the card's own that differ"
+    emit(row)
+    over = {k: v for k, v in worst.items() if v > bar}
     if over:
         raise AssertionError(f"{phase} {arch} over the bar: {over}")
-    if launches != cfg.num_layers:
-        raise AssertionError(f"{phase} {arch}: the prefill launched {launches} kernels for {cfg.num_layers} layers")
+    if cfg.moe is not None and row["routes"]["max_swap_gap"] > row["routes"]["swap_gap_bar"]:
+        raise AssertionError(f"{phase} {arch}: a route swapped at a gap of {row['routes']['max_swap_gap']}")
+    kinds = [kind for kind, _ in cfg.layer_plan()]
+    want_launches = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssd")}
+    if launches != want_launches:
+        raise AssertionError(f"{phase} {arch}: the prefill launched {launches}, expected {want_launches}")
+
+
+def moe_grad_check(cfg, host_p: dict, card_p: dict, x: torch.Tensor, routes: list) -> dict:
+    """The gradients of sum(y * dy) + aux by x and each expert leaf, the
+    card (replaying ``routes``) against the CPU: each leaf's largest
+    difference over its largest |CPU value|."""
+    import route_check
+    from repro_torch.models import moe
+
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(8))
+    grads = {}
+    for where, p in (("cpu", host_p), ("card", card_p)):
+        dev = p["router"].device
+        leaves = {"x": x.to(dev).requires_grad_(), **{k: v.detach().requires_grad_() for k, v in p.items()}}
+        with route_check.RouteRecorder(routes if where == "card" else None):
+            y, aux = moe.apply_moe(cfg, {k: v for k, v in leaves.items() if k != "x"}, leaves["x"])
+            g = torch.autograd.grad((y * dy.to(dev)).sum() + aux, list(leaves.values()))
+        grads[where] = dict(zip(leaves, g))
+    return {k: _rel_err(grads["card"][k], grads["cpu"][k], k) for k in grads["cpu"]}
+
+
+def phase_moe(dev: torch.device, card: str) -> None:
+    """``apply_moe`` at Granite-MoE-1B-A400M's prefill shape (batch 8,
+    prompt 512: x (8, 512, 1024), 32 experts, top 8, capacity 160), seeded
+    weights and input, on the card against the same call on the CPU, the
+    card replaying the CPU's expert choices (``phase_model_check`` says
+    why).  f32 with TF32 off: y within TRAIN_F32_REL of its largest value,
+    aux within 1e-6 of its value.  bf16: y within MODEL_REL.  Every
+    (token) whose own choice on the card differs is printed; a swap at a gap
+    over SWAP_GAP_F32 (f32) or SWAP_GAP (bf16) fails.  f32 also holds the
+    gradients of x and every expert leaf within TRAIN_F32_REL.
+    One prefill-shaped and one decode-shaped (x (8, 1, 1024), capacity 4)
+    call run under ``torch.cuda.set_sync_debug_mode("error")``: any host
+    sync in the layer fails the phase.  Readings: ms a call, the expert
+    products' FLOPs and their bound on the bf16 tensor cores, the dispatch
+    buffer's bytes."""
+    from repro_torch.configs import get_config
+    import route_check
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+
+    base = get_config("granite-moe-1b-a400m")
+    m = base.moe
+    b, s, d = SERVE_BATCH, SERVE_PROMPT, base.d_model
+    cap = moe.capacity_per_seq(base, s)
+    x32 = torch.randn((b, s, d), generator=torch.Generator().manual_seed(7))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    row = {"phase": "moe", "arch": base.name, "x": [b, s, d], "experts": m.n_experts, "top_k": m.experts_per_token,
+           "d_expert": m.d_expert, "capacity": cap}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        host_p = init_params(moe.moe_defs(cfg), seed=7, device="cpu")
+        card_p = tree_map(lambda t: t.to(dev), host_p)
+        x = x32.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        with torch.inference_mode():
+            with route_check.RouteRecorder() as want_routes:
+                want_y, want_aux = moe.apply_moe(cfg, host_p, x)
+            with route_check.RouteRecorder(replay=want_routes.idx) as got_routes:
+                y, aux = moe.apply_moe(cfg, card_p, x.to(dev))
+        diffs = route_check.differences(cfg, want_routes.probs[0], got_routes.probs[0])
+        res = {**route_row(cfg, want_routes.probs, got_routes.probs, diffs), "y_rel_err": _rel_err(y, want_y, "y"),
+               "aux": {"card": float(aux), "cpu": float(want_aux)}}
+        if dtype == "float32":
+            res["grad_rel_err"] = moe_grad_check(cfg, host_p, card_p, x, want_routes.idx)
+        row[dtype] = res
+        aux_ok = dtype == "bfloat16" or abs(float(aux) - float(want_aux)) <= 1e-6 * abs(float(want_aux))
+        if dtype == "float32" and max(res["grad_rel_err"].values()) > TRAIN_F32_REL:
+            aux_ok = False
+        if (res["y_rel_err"] > (TRAIN_F32_REL if dtype == "float32" else MODEL_REL) or not aux_ok
+                or res["max_swap_gap"] > res["swap_gap_bar"]):
+            emit(row)
+            raise AssertionError(f"moe {dtype}: card against CPU over the bar")
+    x = x32.to(dev, torch.bfloat16)
+    sync(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            moe.apply_moe(cfg, card_p, x)
+            moe.apply_moe(cfg, card_p, x[:, :1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    row["host_syncs"] = "none: a prefill- and a decode-shaped call under set_sync_debug_mode('error')"
+    with torch.inference_mode():
+        row["ms"] = time_ms(lambda: moe.apply_moe(cfg, card_p, x), flush)
+    flops = 2 * b * m.n_experts * cap * d * m.d_expert * 3
+    row["expert_flops"] = flops
+    row["expert_tc_bound_ms"] = flops / BF16_TC_OPS_PER_S * 1e3
+    row["dispatch_bytes"] = b * m.n_experts * cap * d * x.element_size()
+    row.update({"card": card, "peaks_for": PEAKS_FOR,
+                "reading": "ms, expert_flops and dispatch_bytes are readings; bf16 is the config's dtype"})
+    emit(row)
 
 
 def serve_prompts(n: int) -> list[str]:
@@ -813,7 +1009,8 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
         raise AssertionError("a request did not get its tokens")
     if not all(finite):
         raise AssertionError("non-finite logits")
-    summary[kernel]["launches"] = launches
+    summary[kernel]["launches"] += launches
+    summary[kernel].setdefault("launches_by_path", {})[f"serve {cfg.name}"] = launches
 
 
 def _kernel_launches() -> dict:
@@ -836,8 +1033,6 @@ def _zero_kernel_launches() -> None:
 def packed_batch(vocab: int, b: int, s: int, seed: int) -> dict:
     """b packed rows of s tokens from seeded documents of 64-400 tokens:
     positions restart and segment ids count per document."""
-    import numpy as np
-
     from repro_torch.data.packing import SequencePacker, collate
 
     rng = np.random.default_rng(seed)
@@ -847,12 +1042,15 @@ def packed_batch(vocab: int, b: int, s: int, seed: int) -> dict:
     return collate(rows[:b])
 
 
-def one_train_step(cfg, dev: torch.device, params: dict, batch: dict) -> tuple[dict, list]:
+def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: list | None = None):
     """One ``build_train_step`` step of ``cfg`` on ``dev`` from ``params``:
-    its metrics and the gradient leaves it applied (read from its call of
-    ``apply_update``)."""
+    its metrics, the gradient leaves it applied (read from its call of
+    ``apply_update``) and its MoE layers' route records in call order (the
+    forward pass, then each layer's recompute in the backward pass), taking
+    the expert choices of ``replay`` if given."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
+    import route_check
     from repro_torch.optim import init_opt_state
     from repro_torch.tree import tree_leaves
 
@@ -867,16 +1065,37 @@ def one_train_step(cfg, dev: torch.device, params: dict, batch: dict) -> tuple[d
 
     steps.apply_update = update
     try:
-        _, _, metrics = bundle.fn(params, init_opt_state(bundle.opt_cfg, params), batch)
+        with route_check.RouteRecorder(replay) as routes:
+            _, _, metrics = bundle.fn(params, init_opt_state(bundle.opt_cfg, params), batch)
     finally:
         steps.apply_update = real_update
-    return {k: float(v) for k, v in metrics.items()}, seen
+    return {k: float(v) for k, v in metrics.items()}, seen, routes
 
 
-def phase_train_check(dev: torch.device, arch: str) -> None:
+def train_route_differences(cfg, want: list, got: list) -> list[dict]:
+    """The forward pass's (token, layer) pairs whose own expert choice
+    differs between two steps' records, with the experts (and so the expert
+    weight leaves) they would have touched differently."""
+    import route_check
+    from repro_torch.models import moe
+
+    moe_layers = [i for i, (_, is_moe) in enumerate(cfg.layer_plan()) if is_moe]
+    out = []
+    for pw, pg, layer in zip(want, got, moe_layers):  # the forward pass's records come first
+        cap, k = moe.capacity_per_seq(cfg, pw.shape[1]), cfg.moe.experts_per_token
+        kw, kg = route_check.kept_experts(pw, k, cap), route_check.kept_experts(pg, k, cap)
+        for diff in route_check.differences(cfg, pw, pg, layer=layer):
+            experts = np.nonzero(kw[diff.row, diff.token] != kg[diff.row, diff.token])[0].tolist()
+            out.append({**dataclasses.asdict(diff), "experts": experts,
+                        "leaves": f"layer {layer} ffn w_gate, w_up, w_down [experts {experts}]"})
+    return out
+
+
+def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False) -> None:
     """One training step of ``arch`` at full width, 2 layers, on the card
     against the same step on the CPU from the same parameters
-    (``Model.init(0)`` on the CPU, copied) and one seeded packed batch:
+    (``Model.init(0)`` on the CPU, copied; with ``conditioned`` through
+    ``condition_attention`` first) and one seeded packed batch:
     the loss, the global gradient norm and each gradient leaf's largest
     difference over its largest |value|, in two checks.
 
@@ -891,7 +1110,16 @@ def phase_train_check(dev: torch.device, arch: str) -> None:
     f32 gradient of the same step: within 2e-2 or within 1.5x the CPU's own
     bf16 rounding of that leaf, whichever is larger; its difference from the
     CPU's bf16 leaf is reported beside it.  None of the steps launches any
-    of K1-K4."""
+    of K1-K4.
+
+    MoE configs: the CPU's bf16 step runs first and records each layer's
+    expert choices, and the CPU's f32 step and both card steps replay them
+    (``phase_model_check`` says why), so every gradient compared, the f32
+    one that bf16 leaves are held to included, is taken on the same
+    routes; each step's own choices that differ from the CPU's in its dtype
+    are printed with the expert leaves they would reach, a swap at a gap
+    over SWAP_GAP (bf16) or SWAP_GAP_F32 (f32) fails, and the f32 aux loss
+    must be non-zero and within 1e-4 of the CPU's."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.tree import tree_items, tree_map
@@ -902,15 +1130,20 @@ def phase_train_check(dev: torch.device, arch: str) -> None:
     f32 = dataclasses.replace(cfg, dtype="float32")
     t0 = time.monotonic()
     host = Model(cfg).init(seed=0, device="cpu")
+    if conditioned:
+        condition_attention(cfg, host)
     batch = packed_batch(cfg.vocab_size, CHECK_BATCH, CHECK_SEQ, seed=6)
+    cpu_m, cpu_g, cpu_r = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
+    routes = cpu_r.idx if cfg.moe else None  # the CPU bf16 step's expert choices, replayed by the other three
+    cpu32_m, f32_g, cpu32_r = one_train_step(
+        f32, torch.device("cpu"), tree_map(lambda t: t.to(torch.float32, copy=True), host), batch, routes)
+    cpu_s = time.monotonic() - t0
     _zero_kernel_launches()
-    card_m, card_g = one_train_step(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), host), batch)
-    card32_m, card32_g = one_train_step(f32, dev, tree_map(lambda t: t.to(dev, torch.float32, copy=True), host), batch)
+    card_m, card_g, card_r = one_train_step(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), host), batch, routes)
+    card32_m, card32_g, card32_r = one_train_step(
+        f32, dev, tree_map(lambda t: t.to(dev, torch.float32, copy=True), host), batch, routes)
     sync(dev)
     launches = _kernel_launches()
-    card_s = time.monotonic() - t0
-    cpu_m, cpu_g = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
-    cpu32_m, f32_g = one_train_step(f32, torch.device("cpu"), tree_map(lambda t: t.float(), host), batch)
     names = [k for k, _ in tree_items(host)]
     leaves, over = {}, {}
     for name, g, want, w32 in zip(names, card_g, cpu_g, f32_g):
@@ -920,11 +1153,30 @@ def phase_train_check(dev: torch.device, arch: str) -> None:
         if leaves[name]["vs_cpu_f32"] > max(MODEL_REL, OWN_ROUNDING * own):
             over[name] = leaves[name]
     leaves32 = {name: _rel_err(g, want, name) for name, g, want in zip(names, card32_g, f32_g)}
-    over.update({f"f32 {k}": v for k, v in leaves32.items() if v > TRAIN_F32_REL})
     scalars = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm")}
-    scalars32 = {k: abs(card32_m[k] - cpu32_m[k]) / abs(cpu32_m[k]) for k in ("loss", "grad_norm")}
+    scalar_names = ("loss", "grad_norm", "aux") if cfg.moe else ("loss", "grad_norm")
+    scalars32 = {k: abs(card32_m[k] - cpu32_m[k]) / abs(cpu32_m[k]) for k in scalar_names}
+    over.update({f"f32 {k}": v for k, v in leaves32.items() if v > TRAIN_F32_REL})
+    moe_row = {}
+    if cfg.moe is not None:  # the aux loss, and every route the two steps took differently
+        moe_row = {"aux": {"card": card_m["aux"], "cpu": cpu_m["aux"], "card_f32": card32_m["aux"],
+                           "cpu_f32": cpu32_m["aux"]},
+                   "routes": {"bf16": train_route_differences(cfg, cpu_r.probs, card_r.probs),
+                              "f32": train_route_differences(f32, cpu32_r.probs, card32_r.probs),
+                              "records": len(card_r.probs), "pairs_a_record": CHECK_BATCH * CHECK_SEQ,
+                              "f32_probs_max_abs_diff": max(float(np.abs(a - b).max())
+                                                            for a, b in zip(cpu32_r.probs, card32_r.probs)),
+                              "note": "every step replays the CPU bf16 step's choices; these are the forward "
+                                      "pass's own choices on the card that differ from the CPU's in its dtype, "
+                                      "with the expert leaves they would reach"}}
+        if not card32_m["aux"] > 0:
+            over["f32 aux"] = moe_row["aux"]
+        for name, gap_bar in (("bf16", SWAP_GAP), ("f32", SWAP_GAP_F32)):
+            if max((r["gap"] for r in moe_row["routes"][name] if r["kind"] == "swap"), default=0.0) > gap_bar:
+                over[f"{name} route swapped at a gap over {gap_bar}"] = moe_row["routes"][name]
     emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "batch": CHECK_BATCH, "seq": CHECK_SEQ, "dtype": cfg.dtype,
+          "weights": "seed 0, wq/wk at fan-in d_model (condition_attention)" if conditioned else "seed 0",
           "documents_in_batch": int(batch["segment_ids"].max()) + 1,
           "loss": {"card": card_m["loss"], "cpu": cpu_m["loss"]},
           "grad_norm": {"card": card_m["grad_norm"], "cpu": cpu_m["grad_norm"]},
@@ -936,7 +1188,7 @@ def phase_train_check(dev: torch.device, arch: str) -> None:
                   "rel_err": scalars32, "max_leaf_rel_err": max(leaves32.values()), "leaves": leaves32,
                   "bar": f"loss, grad_norm and every leaf: card vs cpu <= {TRAIN_F32_REL} of the largest "
                   "|cpu value|, TF32 off"},
-          "kernel_launches": launches, "card_seconds": card_s, "seconds": time.monotonic() - t0})
+          **moe_row, "kernel_launches": launches, "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0})
     if any(v > MODEL_REL for v in scalars.values()) or any(v > TRAIN_F32_REL for v in scalars32.values()) or over:
         raise AssertionError(f"train_check {arch} over the bar: {scalars} {scalars32} {over}")
     if any(launches.values()):
@@ -1106,6 +1358,11 @@ def main() -> int:
         phase_model_check(dev, "qwen3-0.6b", 20, "prefill_ragged")  # padded to 64 for K3
         phase_model_check(dev, "mamba2-780m", 512)  # two chunks of 256
         phase_model_check(dev, "mamba2-780m", 20, "prefill_ragged_ssd")  # one chunk of 20 for K4
+        phase_moe(dev, smi)
+        phase_model_check(dev, "granite-moe-1b-a400m", 256, dtype="float32", conditioned=True)
+        phase_model_check(dev, "granite-moe-1b-a400m", 256, conditioned=True)
+        phase_model_check(dev, "jamba-1.5-large-398b", 128)  # 1 K3 and 1 K4 launch; 23.8 GB of weights
+        torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
@@ -1114,8 +1371,10 @@ def main() -> int:
             phase_example(ds, dev, summary)
         phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
         phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
+        phase_serve(dev, summary, "granite-moe-1b-a400m", "flash_attention", "fa_tc_bf16")
         phase_train_check(dev, "qwen3-0.6b")
         phase_train_check(dev, "mamba2-780m")
+        phase_train_check(dev, "granite-moe-1b-a400m", conditioned=True)
         phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True)
         phase_train(dev, "mamba2-780m", 2, resume=False)
     except Exception:

@@ -6,9 +6,10 @@
 - ``cache_spec(batch, seq_cap)`` → the cache's shapes and dtypes;
   ``new_cache(batch, seq_cap, device)`` allocates it.
 
-Dense GQA decoders and attention-free Mamba2 (SSD) stacks.  MoE, MLA, the
-multi-codebook audio head, the vision prefix and MTP come with later
-slices (ROADMAP §1).
+Dense GQA decoders, attention-free Mamba2 (SSD) stacks, and either with
+Mixture-of-Experts FFNs (Granite-MoE; Jamba's hybrid attention/SSD stack).
+MLA, the multi-codebook audio head, the vision prefix and MTP come with
+later slices (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ class Model:
                 f"{cfg.name}: multi-codebook heads, vision prefixes and MTP are not "
                 "ported yet (ROADMAP §1)"
             )
-        for kind, is_moe in cfg.layer_plan():
-            tf.check_supported(kind, is_moe)
+        for kind, _ in cfg.layer_plan():
+            tf.check_supported(kind)
         self.cfg = cfg
         self._has_attention = any(kind == "attn" for kind, _ in cfg.layer_plan())
 
@@ -80,8 +81,9 @@ class Model:
         """batch: ``tokens`` and ``labels`` (B, S), labels negative where
         masked; ``positions`` (default ``arange(S)``) and ``segment_ids``
         (default zeros), which packed rows restart and number per document.
-        Returns the mean next-token loss and {"loss_lm", "aux", "loss"}
-        (``aux``, MoE's balance loss, is zero without MoE layers)."""
+        Returns the loss (the mean next-token loss plus the MoE layers'
+        summed load-balance loss) and {"loss_lm", "aux", "loss"} (``aux``
+        is zero without MoE layers)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
@@ -91,12 +93,14 @@ class Model:
         segment_ids = batch.get("segment_ids")
         if segment_ids is None:
             segment_ids = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for seg_params, segment in zip(params["segments"], cfg.segments()):
-            x = tf.segment_train(cfg, segment, seg_params, x, positions, segment_ids)
+            x, aux = tf.segment_train(cfg, segment, seg_params, x, positions, segment_ids)
+            aux_total = aux_total + aux
         h = apply_norm(cfg, params["final_norm"], x)
-        loss = self._lm_loss(params, h, batch)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return loss, {"loss_lm": loss, "aux": aux, "loss": loss}
+        loss_lm = self._lm_loss(params, h, batch)
+        loss = loss_lm + aux_total
+        return loss, {"loss_lm": loss_lm, "aux": aux_total, "loss": loss}
 
     # ------------------------------------------------------------------
     # cache

@@ -1,4 +1,4 @@
-"""Block assembly: (mixer + FFN) layers, grouped into stacked segments.
+"""Block assembly: (mixer + FFN/MoE) layers, grouped into stacked segments.
 
 ``cfg.segments()`` splits the layer stack into repetitions of identical
 super-blocks.  Parameters of a segment are stacked (leading "layers" dim),
@@ -16,10 +16,11 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from . import attention, ssm
+from . import attention, moe, ssm
 from .layers import apply_ffn, apply_norm, ffn_defs, norm_defs
 from .params import ParamDef, tree_map_defs
 
@@ -28,17 +29,12 @@ MIXER_TRAIN = {"attn": attention.attn_train, "ssd": ssm.ssd_block_train}
 MIXER_PREFILL = {"attn": attention.attn_prefill, "ssd": ssm.ssd_block_prefill}
 MIXER_DECODE = {"attn": attention.attn_decode, "ssd": ssm.ssd_block_decode}
 
-_NOT_PORTED = {
-    "mla": "MLA attention waits for the DeepSeek slice (ROADMAP §1, MoE and MLA)",
-    "moe": "MoE FFNs wait for the MoE and MLA slice (ROADMAP §1)",
-}
+_NOT_PORTED = {"mla": "MLA attention waits for the DeepSeek slice (ROADMAP §1, MLA and MTP)"}
 
 
-def check_supported(kind: str, is_moe: bool) -> None:
+def check_supported(kind: str) -> None:
     if kind not in MIXER_DEFS:
         raise NotImplementedError(_NOT_PORTED.get(kind, f"unknown block kind {kind!r}"))
-    if is_moe:
-        raise NotImplementedError(_NOT_PORTED["moe"])
 
 
 # ---------------------------------------------------------------------------
@@ -50,33 +46,41 @@ def block_defs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
     d: dict[str, Any] = {"norm1": norm_defs(cfg), "mixer": MIXER_DEFS[kind](cfg)}
     if is_moe or cfg.d_ff > 0:
         d["norm2"] = norm_defs(cfg)
-        d["ffn"] = ffn_defs(cfg)
+        d["ffn"] = moe.moe_defs(cfg) if is_moe else ffn_defs(cfg)
     return d
 
 
-def _ffn_residual(cfg: ModelConfig, p: dict, x):
+def _ffn_residual(cfg: ModelConfig, is_moe: bool, p: dict, x):
+    """x + the layer's FFN (dense or MoE) of its norm; returns (x, the
+    MoE's aux loss, or None for a dense FFN or none)."""
+    aux = None
     if "ffn" in p:
         h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_ffn(cfg, p["ffn"], h).to(x.dtype)
-    return x
+        if is_moe:
+            y, aux = moe.apply_moe(cfg, p["ffn"], h)
+        else:
+            y = apply_ffn(cfg, p["ffn"], h)
+        x = x + y.to(x.dtype)
+    return x, aux
 
 
-def block_apply_train(cfg: ModelConfig, kind: str, p: dict, x, positions, segment_ids):
+def block_apply_train(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, positions, segment_ids):
+    """Returns (x, the MoE's aux loss or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     x = x + MIXER_TRAIN[kind](cfg, p["mixer"], h, positions, segment_ids).to(x.dtype)
-    return _ffn_residual(cfg, p, x)
+    return _ffn_residual(cfg, is_moe, p, x)
 
 
-def block_apply_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions, cache: dict):
+def block_apply_prefill(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, positions, cache: dict):
     h = apply_norm(cfg, p["norm1"], x)
     x = x + MIXER_PREFILL[kind](cfg, p["mixer"], h, positions, cache).to(x.dtype)
-    return _ffn_residual(cfg, p, x)
+    return _ffn_residual(cfg, is_moe, p, x)[0]
 
 
-def block_apply_decode(cfg: ModelConfig, kind: str, p: dict, x, cache: dict, pos: int):
+def block_apply_decode(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, cache: dict, pos: int):
     h = apply_norm(cfg, p["norm1"], x)
     x = x + MIXER_DECODE[kind](cfg, p["mixer"], h, cache, pos).to(x.dtype)
-    return _ffn_residual(cfg, p, x)
+    return _ffn_residual(cfg, is_moe, p, x)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -114,34 +118,40 @@ def _layer(tree: Any, i: int) -> Any:
 
 
 def segment_train(cfg: ModelConfig, segment, seg_params: dict, x, positions, segment_ids):
-    """The training apply of one ``(super_block_plan, n_repeat)`` segment.
-    With ``cfg.remat`` each repeat of the super-block keeps only its input
-    for the backward pass and runs again there (``remat_policy`` picks what
-    the reference's XLA keeps inside a layer; here nothing is kept)."""
+    """The training apply of one ``(super_block_plan, n_repeat)`` segment;
+    returns (x, the sum of its MoE layers' aux losses).  With ``cfg.remat``
+    each repeat of the super-block keeps only its input for the backward
+    pass and runs again there (``remat_policy`` picks what the reference's
+    XLA keeps inside a layer; here nothing is kept)."""
     plan, n_repeat = segment
 
     def inner(x, layer):
-        for i, (kind, _) in enumerate(plan):
-            x = block_apply_train(
-                cfg, kind, _layer(seg_params["blocks"][i], layer), x, positions, segment_ids
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (kind, is_moe) in enumerate(plan):
+            x, a = block_apply_train(
+                cfg, kind, is_moe, _layer(seg_params["blocks"][i], layer), x, positions, segment_ids
             )
-        return x
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(n_repeat):
         if cfg.remat:
-            x = checkpoint(inner, x, layer, use_reentrant=False)
+            x, a = checkpoint(inner, x, layer, use_reentrant=False)
         else:
-            x = inner(x, layer)
-    return x
+            x, a = inner(x, layer)
+        aux = aux + a
+    return x, aux
 
 
 def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, positions):
     """``segment`` is one ``(super_block_plan, n_repeat)`` of ``cfg.segments()``."""
     plan, n_repeat = segment
     for layer in range(n_repeat):
-        for i, (kind, _) in enumerate(plan):
+        for i, (kind, is_moe) in enumerate(plan):
             x = block_apply_prefill(
-                cfg, kind, _layer(seg_params["blocks"][i], layer), x, positions,
+                cfg, kind, is_moe, _layer(seg_params["blocks"][i], layer), x, positions,
                 _layer(seg_cache["blocks"][i], layer),
             )
     return x
@@ -150,9 +160,9 @@ def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict
 def segment_decode(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, pos: int):
     plan, n_repeat = segment
     for layer in range(n_repeat):
-        for i, (kind, _) in enumerate(plan):
+        for i, (kind, is_moe) in enumerate(plan):
             x = block_apply_decode(
-                cfg, kind, _layer(seg_params["blocks"][i], layer), x,
+                cfg, kind, is_moe, _layer(seg_params["blocks"][i], layer), x,
                 _layer(seg_cache["blocks"][i], layer), pos,
             )
     return x

@@ -51,7 +51,7 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     assert [m for m in loaded if _is_reference(m) or m.split(".")[0] == "jax"] == []
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", *sorted(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tools/route_check.py", *sorted(
     str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
 )])
 def test_no_source_names_jax_or_the_reference_in_an_import(path):

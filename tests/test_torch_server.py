@@ -1,6 +1,7 @@
 """The port's ``BatchServer`` emits the reference's tokens.
 
-Both servers run an f32 smoke config (qwen3, mamba2) on the same carried
+Both servers run an f32 smoke config (qwen3, mamba2, granite-moe and
+jamba, whose MoE layers route in f32 on both sides) on the same carried
 weights: the reference's through its jitted steps (with the stub
 ``repro.dist``), the port's on the CPU, its prefill attention in
 ``flash_attention``'s plain version and its SSD scan in ``ssd_scan``'s.  Prompts of mixed lengths, one longer than ``prompt_len``
@@ -32,7 +33,7 @@ PROMPTS = [
 ]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "granite-moe-1b-a400m", "jamba-1.5-large-398b"])
 def test_greedy_tokens_match_the_reference(reference_stack, arch):  # noqa: F811
     ref = reference_stack
     ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")

@@ -2,8 +2,9 @@
 and whole optimizer steps of ``build_train_step``.
 
 The reference ``Model`` is initialized on a smoke config (qwen3, a dense
-GQA decoder; mamba2, an attention-free SSD stack) from ``PRNGKey(0)`` and
-its parameters cross to the port; the same seeded packed batch (documents
+GQA decoder; mamba2, an attention-free SSD stack; granite-moe and jamba,
+whose MoE layers add the load-balance loss) from ``PRNGKey(0)`` and its
+parameters cross to the port; the same seeded packed batch (documents
 of 5-19 tokens packed into rows of 24, positions restarting and segment ids
 counting per document) goes through both.  Attention runs the reference's
 plain path (24 keys) and, with ``attn_chunk`` forced below the sequence,
@@ -18,7 +19,9 @@ batch), whichever is larger.  Measured on the CPU over seeds 0-2: the
 reference's bf16 gradients are 1.9-3.0e-2 (qwen3) and 7.3-15.4e-2 (mamba2)
 of the largest value off its f32 ones, and the port's 2.2-3.2e-2 and
 4.1-5.3e-2 off the reference's, so a fixed 2e-2 would hold the port to less
-than the reference's own rounding.
+than the reference's own rounding.  granite-moe's and jamba's own bf16
+rounding reaches 31% and 29% of a leaf's largest value (PRNGKey 0), so
+their bf16 cases show little: their f32 cases are the ones that hold them.
 """
 
 import dataclasses
@@ -41,7 +44,7 @@ from repro_torch.optim import init_opt_state  # noqa: E402
 from repro_torch.tree import tree_items  # noqa: E402
 from torch_parity import reference_stack  # noqa: E402,F401
 
-ARCHS = ["qwen3-0.6b", "mamba2-780m"]
+ARCHS = ["qwen3-0.6b", "mamba2-780m", "granite-moe-1b-a400m", "jamba-1.5-large-398b"]
 B, S = 2, 24
 F32_LOSS, F32_GRAD, F32_PARAMS = 2e-5, 1e-4, 2e-5
 BF16_REL, BF16_OWN_ROUNDING = 2e-2, 1.5
@@ -62,10 +65,11 @@ def _configs(ref, arch, dtype, **over):
 
 
 def _ref_grads(ref_model, params_np, batch):
-    (loss, _), grads = jax.value_and_grad(ref_model.train_loss, has_aux=True)(
+    (loss, metrics), grads = jax.value_and_grad(ref_model.train_loss, has_aux=True)(
         jax.tree.map(jnp.asarray, params_np), {k: jnp.asarray(v) for k, v in batch.items()}
     )
     flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+    _ref_grads.aux = float(metrics["aux"])
     return float(loss), {jax.tree_util.keystr(p): np.asarray(g, np.float32) for p, g in flat}
 
 
@@ -75,6 +79,7 @@ def _port_grads(model, params_np, batch):
     loss, metrics = model.train_loss(params, {k: torch.from_numpy(v) for k, v in batch.items()})
     grads = torch.autograd.grad(loss, leaves)
     assert set(metrics) == {"loss", "loss_lm", "aux"}
+    _port_grads.aux = float(metrics["aux"])
     return float(loss.detach()), {k: g.float().numpy() for (k, _), g in zip(tree_items(params), grads)}
 
 
@@ -85,6 +90,7 @@ def _rel(got: np.ndarray, want: np.ndarray) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch,over", [
     ("qwen3-0.6b", {}), ("mamba2-780m", {}),
+    ("granite-moe-1b-a400m", {}), ("jamba-1.5-large-398b", {}),  # MoE: aux joins the loss
     ("qwen3-0.6b", {"attn_chunk": 8}),  # 24 keys > 8: the chunked online softmax
     ("mamba2-780m", {"remat": False}),  # layers kept for the backward pass, not recomputed
 ])
@@ -101,6 +107,12 @@ def test_train_loss_and_gradients_match_the_reference(reference_stack, arch, ove
     got_loss, got = _port_grads(model, params_np, batch)
     assert (fa.flash_attention.launches, ks.ssd_scan.launches) == launches  # no kernel in training
     assert got.keys() == want.keys()
+    if cfg.moe is not None:  # the load-balance loss joins the LM loss, as in the reference
+        assert _port_grads.aux > 0
+        bar = 1e-6 if dtype == "float32" else BF16_REL
+        assert abs(_port_grads.aux - _ref_grads.aux) <= bar * _ref_grads.aux, (_port_grads.aux, _ref_grads.aux)
+    else:
+        assert _port_grads.aux == _ref_grads.aux == 0
     if dtype == "float32":
         assert abs(got_loss - want_loss) <= F32_LOSS, (got_loss, want_loss)
         for k in want:
@@ -212,11 +224,19 @@ def _flat(tree) -> dict:
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_three_adamw_steps_match_the_reference_f32(reference_stack, arch):  # noqa: F811
+    """Metrics within 2e-5 of their value, but for the MoE configs'
+    grad_norm, which is held to the gradients' own 1e-4: granite-smoke's
+    tied head gives logits some 8x qwen3-smoke's (loss 22.7), so f32 rounds
+    its gradient leaves 2-3e-5 apart between the two frameworks (qwen3's
+    about 1e-6; measured on the CPU) and their norm 1.0-2.2e-5 apart over
+    the three steps."""
     params, opt, got_m, ref_params, ref_opt, want_m = _steps(reference_stack, arch, "float32", 1, 3)
+    moe = port_configs.get_smoke_config(arch).moe is not None
     for got, want in zip(got_m, want_m):
         assert got.keys() == want.keys()
         for k in want:
-            assert abs(got[k] - want[k]) <= F32_LOSS * max(1.0, abs(want[k])), (k, got[k], want[k])
+            bar = F32_GRAD if moe and k == "grad_norm" else F32_LOSS
+            assert abs(got[k] - want[k]) <= bar * max(1.0, abs(want[k])), (k, got[k], want[k])
     ref_flat = _flat(ref_params)
     for k, a in _flat(params).items():
         np.testing.assert_allclose(a, ref_flat[k], atol=F32_PARAMS, rtol=0, err_msg=k)

@@ -4,13 +4,23 @@
 bf16 output may differ by one bf16 ulp (the two frameworks may round an
 intermediate at another place); f32 output by 2e-5 absolute, the kernel
 suite's f32 bar (``tests/test_kernels.py``).  ``reference_stack`` imports
-the reference's model stack for the tests of the serving path.
+the reference's model stack for the tests of the serving path, and puts
+``tools/`` on the import path for ``route_check``.
 """
+
+import contextlib
+import pathlib
+import sys
 
 import numpy as np
 import pytest
 
+_TOOLS = str(pathlib.Path(__file__).resolve().parents[1] / "tools")
+if _TOOLS not in sys.path:
+    sys.path.insert(0, _TOOLS)
+
 F32_ATOL = 2e-5
+SWAP_GAP = 1e-2  # a route may differ only where the reference's k-th and (k+1)-th probabilities are closer
 
 
 def _bf16_order(a: np.ndarray) -> np.ndarray:
@@ -113,3 +123,36 @@ def reference_stack(monkeypatch):
         for attr in ("dist", "models", "launch", "runtime"):
             if f"repro.{attr}" not in before:
                 repro.__dict__.pop(attr, None)
+
+
+@contextlib.contextmanager
+def reference_routes(monkeypatch):
+    """Records, for each MoE layer the reference runs and in call order, its
+    router probabilities (B, S, E) into ``.probs`` and its top-k experts
+    (B, S, k) into ``.idx``, as ``tools/route_check.py`` records
+    the port's: the reference's own routing lines
+    (``repro/models/moe.py:65-67``) beside its ``apply_moe``, read out of
+    its traced code by an ordered ``jax.debug.callback``.  Needs
+    ``reference_stack``; the records are complete when the block ends."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+    from repro.models import moe as ref_moe
+
+    log = types.SimpleNamespace(probs=[], idx=[])
+    real = ref_moe.apply_moe
+
+    def keep(probs, idx):
+        log.probs.append(np.asarray(probs))
+        log.idx.append(np.asarray(idx).astype(np.int64))
+
+    def apply_moe(cfg, p, x):
+        probs = jax.nn.softmax(jnp.einsum("bsd,de->bse", x.astype(jnp.float32), p["router"]), axis=-1)
+        jax.debug.callback(keep, probs, jax.lax.top_k(probs, cfg.moe.experts_per_token)[1], ordered=True)
+        return real(cfg, p, x)
+
+    monkeypatch.setattr(ref_moe, "apply_moe", apply_moe)
+    yield log
+    jax.effects_barrier()
+    monkeypatch.setattr(ref_moe, "apply_moe", real)
