@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's image path, its LM serving path (dense, SSD and
-Mixture-of-Experts models) and its LM training path on one CUDA card and
-check them.
+"""Drive the PyTorch port's image path, its LM serving path (dense, SSD,
+Mixture-of-Experts and MLA models) and its LM training path on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -27,20 +27,28 @@ and a copy of the same bytes), then runs
     and Jamba-1.5-Large (2 layers: attention with its dense FFN, then SSD
     with a 16-expert MoE; K3 and K4 in one stack) in bf16; every MoE
     route that differs is printed with its probability gap;
+  - DeepSeek-V3 at full width on the card against the CPU: 2 dense MLA
+    layers in f32 with TF32 off, and 4 layers (3 dense, then one of 256
+    experts top 8 and a shared expert; 31.6 GB of bf16 weights) in bf16,
+    MLA's prefill in K3 at head dim 192;
   - ``BatchServer`` on Qwen3-0.6B at full width and depth (28 layers,
     seed-initialized weights), prefill attention in ``flash_attention``;
   - ``BatchServer`` on Mamba2-780m at full width and depth (48 SSD layers,
     seed-initialized weights), the prefill scan in ``ssd_scan``;
   - ``BatchServer`` on Granite-MoE-1B-A400M at full width and depth (24
     attention layers, each FFN 32 experts top 8), K3 in its prefill;
-  - one training step of Qwen3-0.6B, Mamba2-780m and Granite-MoE-1B-A400M
-    at full width, cut to 2 layers, on the card against the same step on
-    the CPU, in f32 with TF32 off and in bf16 (``train_check``; Granite's
-    aux loss and routes too);
+  - ``BatchServer`` on DeepSeek-V3 at full width, cut to 4 layers, K3 in
+    its MLA prefill;
+  - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M and
+    DeepSeek-V3 at full width, cut to 2 layers (DeepSeek's MTP block
+    beside them), on the card against the same step on the CPU, in f32
+    with TF32 off and in bf16 (``train_check``; Granite's aux loss and
+    routes, DeepSeek's MTP loss too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
-    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 8 steps,
-    with a checkpoint at step 4 that a fresh ``Trainer.from_checkpoint``
-    restores bit for bit, and Mamba2-780m for 2 steps.  Training launches
+    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 6 steps,
+    with a checkpoint at step 3 that a fresh ``Trainer.from_checkpoint``
+    restores bit for bit, Mamba2-780m for 2 steps, and Granite-MoE-1B-A400M
+    for 2 steps (its aux loss beside the LM loss).  Training launches
     none of the four kernels: the reference trains through its plain
     attention and SSD scan, which the port repeats under autograd.
 Each phase prints one JSON line.  The last three lines are the kernel
@@ -54,6 +62,7 @@ any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -92,9 +101,11 @@ TRAIN_F32_REL = 1e-4  # f32 train step, TF32 off: the CPU tests' f32 gradient ba
 SWAP_GAP = 1e-2  # bf16: a MoE route may differ from the CPU's only where its k-th and (k+1)-th probabilities are closer
 SWAP_GAP_F32 = 1e-5  # f32, TF32 off: the same, for rounding some 1e-6 of a value
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
+MLA_V_DIM = 128  # DeepSeek-V3's v head dim, padded to q's 192 for K3
 CHECK_SEQ, CHECK_BATCH = 512, 2  # train_check: one step, card against CPU, 2 layers
+DEEPSEEK_CHECK_SEQ = 128  # DeepSeek-V3's train_check, one row: 3.71 B parameters, two steps on the CPU
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 8, 4, 2
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 6, 3, 2  # Qwen3's train phase
 OWN_ROUNDING = 1.5  # a bf16 gradient leaf may differ by 1.5x the CPU's own bf16 rounding of it
 
 
@@ -126,6 +137,14 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
         raise AssertionError("non-finite output")
     return {"max_abs_err": float(err.max()), "mismatches": int((err > 0).sum()),
             "over_bar": over, "bar": bar}
+
+
+def release_card() -> None:
+    """Return what earlier phases left to the card before a phase that needs
+    most of it: objects in reference cycles (a pipeline's, a trainer's) go
+    only when the collector runs, and with them the tensors they hold."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def sync(dev: torch.device) -> None:
@@ -537,12 +556,20 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("f32_hd64", 2, 8, 2, 384, 384, 64, f32, False, 128, 64),
         ("granite", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 64, bf16, True, 128, 128),  # Granite-MoE's prefill
         ("jamba", 2, 64, 8, 128, 128, 128, bf16, True, 128, 128),  # Jamba's model_check prefill
+        # DeepSeek-V3's MLA prefill: 128 heads as kv groups of 1, q and k of
+        # 128 + 64 rope dims, v of 128 zero-padded to 192
+        ("mla", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 128, 128),
+        ("mla_f32", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, f32, True, 128, 128),
+        ("mla_block_k64", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 64, 64),  # no spills at 64
+        ("mla_ragged_rows", 1, 16, 16, 96, 192, 192, bf16, True, 32, 64),  # sq not a multiple of 64 rows
     ]
     ptxas = _build.ptxas("flash_attention")
     entry = summary["flash_attention"]
     for name, b, h, hkv, sq, skv, hd, dtype, causal, bq, bk in cases:
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for shape in ((b, h, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd)))
+        if name.startswith("mla"):
+            v[..., MLA_V_DIM:] = 0  # mla_prefill's zero padding of v
         kw = {"causal": causal, "block_q": bq, "block_k": bk}
         got = fa.flash_attention(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
@@ -554,19 +581,28 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         if row["over_bar"]:
             emit(row)
             raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
-        if name in ("main", "f32", "granite"):
+        if name.startswith("mla") and got[..., MLA_V_DIM:].any():
+            raise AssertionError(f"flash_attention {name}: the zero-padded v's output columns are not zero")
+        if name in ("main", "f32", "granite", "mla", "mla_f32", "mla_block_k64"):
             row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
             ops = 4 * hd * causal_pairs(sq, skv, causal) * b * h
             row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S, card))
-        if name in ("main", "granite"):
+        if name in ("main", "granite", "mla"):
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
-            row["library_ms"] = time_ms(library_attention(q, k, v, causal), flush)
-            row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+            if name == "mla":  # SDPA takes v's own 128 dims; its default scale is 1/sqrt(192), as K3's
+                v_lib = v[..., :MLA_V_DIM].contiguous()
+                row["library_ms"] = time_ms(library_attention(q, k, v_lib, causal), flush)
+                row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True) on v (8,128,512,128)"
+            else:
+                row["library_ms"] = time_ms(library_attention(q, k, v, causal), flush)
+                row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
             row["over_library"] = row["ms"] / row["library_ms"]
             row["over_bound"] = row["ms"] / row["bound_ms"]
-        if name == "granite":
-            entry["granite"] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name in ("granite", "mla"):
+            entry[name] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name in ("mla_f32", "mla_block_k64"):
+            entry["mla"][f"{name[4:]}_ms"] = row["ms"]
         if name == "main":
             row["ptxas"] = ptxas  # both kernels, each instantiation
             per_head = k3_tiles(sq, skv, causal, bk)
@@ -672,20 +708,39 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 def condition_attention(cfg, params: dict) -> dict:
     """``params`` with each attention block's ``wq`` and ``wk`` scaled, in
     place, as if drawn at fan-in d_model: by sqrt(heads / d_model) and
-    sqrt(kv_heads / d_model).  The reference's init draws them with fan-in
-    over the heads dim (16 and 8 for Granite), so without qk_norm a score
-    has a spread of about 90 and attention is nearly one-hot: any rounding
-    moves the weights of near-tied keys far, in the card's run and the
-    CPU's alike, and a card-against-CPU check then measures that and not
-    the port.  The checks compare the port with itself, so they run on
-    weights where it is well conditioned."""
+    sqrt(kv_heads / d_model); and each MLA block's ``w_uq`` and ``w_uk``
+    (the MTP block's too) as if drawn at fan-in over their latent rank: by
+    sqrt(heads / q_lora_rank) and sqrt(heads / kv_lora_rank), for
+    DeepSeek-V3 sqrt(128/1536) and sqrt(128/512).  The reference's init
+    draws them with fan-in over the heads dim (16 and 8 for Granite, 128
+    for DeepSeek), so without qk_norm a score has a wide spread (about 90
+    for Granite) and attention is nearly one-hot: any rounding moves the
+    weights of near-tied keys far, in the card's run and the CPU's alike,
+    and a card-against-CPU check then measures that and not the port.  The
+    checks compare the port with itself, so they run on weights where it
+    is well conditioned."""
     h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.d_model
-    for seg in params["segments"]:
-        for blk in seg["blocks"]:
-            if "wq" in blk["mixer"]:
-                blk["mixer"]["wq"].mul_((h / d) ** 0.5)
-                blk["mixer"]["wk"].mul_((kv / d) ** 0.5)
+    scale = {"wq": (h / d) ** 0.5, "wk": (kv / d) ** 0.5}
+    if cfg.mla is not None:
+        scale = {"w_uq": (h / cfg.mla.q_lora_rank) ** 0.5, "w_uk": (h / cfg.mla.kv_lora_rank) ** 0.5}
+    mixers = [blk["mixer"] for seg in params["segments"] for blk in seg["blocks"]]
+    if "mtp" in params:
+        mixers.append(params["mtp"]["block"]["mixer"])
+    for mixer in mixers:
+        for name, factor in scale.items():
+            if name in mixer:
+                mixer[name].mul_(factor)
     return params
+
+
+def conditioned_weights(cfg) -> str:
+    if cfg.mla is not None:
+        return "seed 0, w_uq/w_uk at fan-in q_lora_rank/kv_lora_rank (condition_attention)"
+    return "seed 0, wq/wk at fan-in d_model (condition_attention)"
+
+
+def moe_layers(cfg) -> int:
+    return sum(is_moe for _, is_moe in cfg.layer_plan())
 
 
 def serve_run(model, params, tokens, forced, device, vocab: int, replay: list | None = None) -> dict:
@@ -740,16 +795,17 @@ def route_row(cfg, want: list, got: list, diffs: list | None = None) -> dict:
 
 
 def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "model_check",
-                      dtype: str | None = None, conditioned: bool = False) -> None:
-    """``arch`` at full width, 2 layers (the CPU run's sake), in its own
-    dtype or ``dtype``: the port on the card against the same model and
-    weights on the CPU, prefill of ``seq`` tokens then 4 forced decode
+                      dtype: str | None = None, conditioned: bool = False, layers: int = 2) -> None:
+    """``arch`` at full width, ``layers`` layers (2 by default, for the CPU
+    run's sake), in its own dtype or ``dtype``: the port on the card
+    against the same model and weights on the CPU, prefill of ``seq``
+    tokens then 4 forced decode
     steps, logits and every cache entry (k/v of attention blocks, the ssm
     state and conv window of SSD blocks), each within MODEL_REL (bf16) or
     TRAIN_F32_REL (f32, TF32 off) of its largest CPU value.  The card's
     prefill launches one kernel a layer, K3 for attention and K4 for SSD,
-    counted.  With ``conditioned`` the seed-0 weights go through
-    ``condition_attention`` first, on both sides.
+    counted (MLA's prefill is K3 too).  With ``conditioned`` the seed-0
+    weights go through ``condition_attention`` first, on both sides.
 
     MoE layers route discretely (``tools/route_check.py``): the CPU runs
     first and records each layer's expert choices, and the card replays
@@ -763,7 +819,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     from repro_torch.models import Model
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2, **({"dtype": dtype} if dtype else {}))
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, **({"dtype": dtype} if dtype else {}))
     bar = TRAIN_F32_REL if cfg.dtype == "float32" else MODEL_REL
     model = Model(cfg)
     b, s, steps = 2, seq, 4
@@ -780,7 +836,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
         del host_params
         cpu_s = time.monotonic() - t0
         _zero_kernel_launches()
-        card = serve_run(model, params, tokens, forced, dev, cfg.vocab_size, cpu["idx"] if cfg.moe else None)
+        card = serve_run(model, params, tokens, forced, dev, cfg.vocab_size, cpu["idx"] if moe_layers(cfg) else None)
         sync(dev)
         launches = {"flash_attention": flash_attention.flash_attention.launches,
                     "ssd_scan": ssd_scan.ssd_scan.launches}
@@ -788,20 +844,20 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
         worst = output_errors(card, cpu)
     row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype, "prefill_launches": launches,
-           "weights": "seed 0, wq/wk at fan-in d_model (condition_attention)" if conditioned else "seed 0",
-           "max_rel_err_vs_cpu": worst, "bar": f"max |card - cpu| <= {bar} * max |cpu|", "cpu_seconds": cpu_s,
-           "seconds": time.monotonic() - t0}
-    if cfg.moe is not None:
+           "weights": conditioned_weights(cfg) if conditioned else "seed 0",
+           "params": model.param_count(), "max_rel_err_vs_cpu": worst,
+           "bar": f"max |card - cpu| <= {bar} * max |cpu|", "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0}
+    if moe_layers(cfg):
         row["routes"] = route_row(cfg, cpu["probs"], card["probs"])
         row["routes"]["note"] = "the card replays the CPU's choices; these are the card's own that differ"
     emit(row)
     over = {k: v for k, v in worst.items() if v > bar}
     if over:
         raise AssertionError(f"{phase} {arch} over the bar: {over}")
-    if cfg.moe is not None and row["routes"]["max_swap_gap"] > row["routes"]["swap_gap_bar"]:
+    if moe_layers(cfg) and row["routes"]["max_swap_gap"] > row["routes"]["swap_gap_bar"]:
         raise AssertionError(f"{phase} {arch}: a route swapped at a gap of {row['routes']['max_swap_gap']}")
     kinds = [kind for kind, _ in cfg.layer_plan()]
-    want_launches = {"flash_attention": kinds.count("attn"), "ssd_scan": kinds.count("ssd")}
+    want_launches = {"flash_attention": kinds.count("attn") + kinds.count("mla"), "ssd_scan": kinds.count("ssd")}
     if launches != want_launches:
         raise AssertionError(f"{phase} {arch}: the prefill launched {launches}, expected {want_launches}")
 
@@ -927,10 +983,12 @@ def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
             "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
-def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str) -> None:
-    """The serving path at full width and depth: ``BatchServer`` on ``arch``,
-    seed-initialized on the card, two prefill batches; ``kernel`` is the one
-    its prefill launches once a layer (``kernel_symbol`` in its CUDA name).
+def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str,
+                layers: int | None = None) -> None:
+    """The serving path at full width and depth (or cut to ``layers``):
+    ``BatchServer`` on ``arch``, seed-initialized on the card, two prefill
+    batches; ``kernel`` is the one its prefill launches once a layer
+    (``kernel_symbol`` in its CUDA name).
     Each step's host time to enqueue is kept beside its time to finish, and
     one more prefill and decode step run under the profiler."""
     from repro_torch.configs import get_config
@@ -941,6 +999,8 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
 
     wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
     server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
@@ -997,6 +1057,9 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
           "decode_enqueue_ms_per_token": statistics.median(times["decode_enqueue"]),
           "prefill_trace": prefill_trace, "decode_trace": decode_trace,
           "trace_note": "one more prefill and decode step under torch.profiler: device_busy_ms sums the card's kernel times",
+          "card_busy_share": {"prefill": prefill_trace["device_busy_ms"] / min(times["prefill"]),
+                              "decode": decode_trace["device_busy_ms"] / statistics.median(times["decode"]),
+                              "note": "traced busy ms over the untraced step's wall ms (prefill: the faster batch)"},
           "generated_tokens_per_s": sum(len(r.token_ids) for r in results) / wall, "wall_s": wall,
           "param_bytes": param_bytes, "cache_bytes": cache_bytes})
     if launches != cfg.num_layers * batches:
@@ -1045,7 +1108,8 @@ def packed_batch(vocab: int, b: int, s: int, seed: int) -> dict:
 def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: list | None = None):
     """One ``build_train_step`` step of ``cfg`` on ``dev`` from ``params``:
     its metrics, the gradient leaves it applied (read from its call of
-    ``apply_update``) and its MoE layers' route records in call order (the
+    ``apply_update``, which only reads them; on the host, copied there from
+    the card) and its MoE layers' route records in call order (the
     forward pass, then each layer's recompute in the backward pass), taking
     the expert choices of ``replay`` if given."""
     from repro_torch.configs.base import ShapeConfig
@@ -1054,13 +1118,13 @@ def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: li
     from repro_torch.optim import init_opt_state
     from repro_torch.tree import tree_leaves
 
-    bundle = steps.build_train_step(cfg, ShapeConfig("check", CHECK_SEQ, CHECK_BATCH, "train"),
-                                    grad_accum=1, device=dev)
+    rows, seq = batch["tokens"].shape
+    bundle = steps.build_train_step(cfg, ShapeConfig("check", seq, rows, "train"), grad_accum=1, device=dev)
     seen = []
     real_update = steps.apply_update
 
     def update(opt_cfg, params, grads, state):
-        seen.extend(g.detach().clone() for g in tree_leaves(grads))
+        seen.extend(g.detach().cpu() for g in tree_leaves(grads))
         return real_update(opt_cfg, params, grads, state)
 
     steps.apply_update = update
@@ -1091,13 +1155,15 @@ def train_route_differences(cfg, want: list, got: list) -> list[dict]:
     return out
 
 
-def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False) -> None:
-    """One training step of ``arch`` at full width, 2 layers, on the card
-    against the same step on the CPU from the same parameters
-    (``Model.init(0)`` on the CPU, copied; with ``conditioned`` through
-    ``condition_attention`` first) and one seeded packed batch:
-    the loss, the global gradient norm and each gradient leaf's largest
-    difference over its largest |value|, in two checks.
+def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
+                      seq: int = CHECK_SEQ, rows: int = CHECK_BATCH) -> None:
+    """One training step of ``arch`` at full width, 2 layers (and the MTP
+    block where the config has one), on the card against the same step on
+    the CPU from the same parameters (``Model.init(0)`` on the CPU, copied;
+    with ``conditioned`` through ``condition_attention`` first) and one
+    seeded packed batch of ``rows`` rows of ``seq`` tokens: the loss (and the
+    MTP loss beside it), the global gradient norm and each gradient leaf's
+    largest difference over its largest |value|, in two checks.
 
     f32 (the config at ``dtype="float32"``, TF32 off): every one of them
     within 1e-4, the bar the CPU tests hold the port's f32 gradients to
@@ -1132,9 +1198,10 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False) -
     host = Model(cfg).init(seed=0, device="cpu")
     if conditioned:
         condition_attention(cfg, host)
-    batch = packed_batch(cfg.vocab_size, CHECK_BATCH, CHECK_SEQ, seed=6)
+    batch = packed_batch(cfg.vocab_size, rows, seq, seed=6)
+    has_moe = moe_layers(cfg) > 0
     cpu_m, cpu_g, cpu_r = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
-    routes = cpu_r.idx if cfg.moe else None  # the CPU bf16 step's expert choices, replayed by the other three
+    routes = cpu_r.idx if has_moe else None  # the CPU bf16 step's expert choices, replayed by the other three
     cpu32_m, f32_g, cpu32_r = one_train_step(
         f32, torch.device("cpu"), tree_map(lambda t: t.to(torch.float32, copy=True), host), batch, routes)
     cpu_s = time.monotonic() - t0
@@ -1153,17 +1220,18 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False) -
         if leaves[name]["vs_cpu_f32"] > max(MODEL_REL, OWN_ROUNDING * own):
             over[name] = leaves[name]
     leaves32 = {name: _rel_err(g, want, name) for name, g, want in zip(names, card32_g, f32_g)}
-    scalars = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm")}
-    scalar_names = ("loss", "grad_norm", "aux") if cfg.moe else ("loss", "grad_norm")
+    mtp = ("loss_mtp",) if cfg.mtp else ()
+    scalars = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm", *mtp)}
+    scalar_names = ("loss", "grad_norm", *mtp, *(("aux",) if has_moe else ()))
     scalars32 = {k: abs(card32_m[k] - cpu32_m[k]) / abs(cpu32_m[k]) for k in scalar_names}
     over.update({f"f32 {k}": v for k, v in leaves32.items() if v > TRAIN_F32_REL})
     moe_row = {}
-    if cfg.moe is not None:  # the aux loss, and every route the two steps took differently
+    if has_moe:  # the aux loss, and every route the two steps took differently
         moe_row = {"aux": {"card": card_m["aux"], "cpu": cpu_m["aux"], "card_f32": card32_m["aux"],
                            "cpu_f32": cpu32_m["aux"]},
                    "routes": {"bf16": train_route_differences(cfg, cpu_r.probs, card_r.probs),
                               "f32": train_route_differences(f32, cpu32_r.probs, card32_r.probs),
-                              "records": len(card_r.probs), "pairs_a_record": CHECK_BATCH * CHECK_SEQ,
+                              "records": len(card_r.probs), "pairs_a_record": rows * seq,
                               "f32_probs_max_abs_diff": max(float(np.abs(a - b).max())
                                                             for a, b in zip(cpu32_r.probs, card32_r.probs)),
                               "note": "every step replays the CPU bf16 step's choices; these are the forward "
@@ -1174,20 +1242,18 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False) -
         for name, gap_bar in (("bf16", SWAP_GAP), ("f32", SWAP_GAP_F32)):
             if max((r["gap"] for r in moe_row["routes"][name] if r["kind"] == "swap"), default=0.0) > gap_bar:
                 over[f"{name} route swapped at a gap over {gap_bar}"] = moe_row["routes"][name]
-    emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "batch": CHECK_BATCH, "seq": CHECK_SEQ, "dtype": cfg.dtype,
-          "weights": "seed 0, wq/wk at fan-in d_model (condition_attention)" if conditioned else "seed 0",
+    emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers, "mtp": cfg.mtp, "d_model": cfg.d_model,
+          "params": Model(cfg).param_count(), "batch": rows, "seq": seq, "dtype": cfg.dtype,
+          "weights": conditioned_weights(cfg) if conditioned else "seed 0",
           "documents_in_batch": int(batch["segment_ids"].max()) + 1,
-          "loss": {"card": card_m["loss"], "cpu": cpu_m["loss"]},
-          "grad_norm": {"card": card_m["grad_norm"], "cpu": cpu_m["grad_norm"]},
+          **{k: {"card": card_m[k], "cpu": cpu_m[k]} for k in ("loss", "grad_norm", *mtp)},
           "rel_err": scalars, "max_leaf_rel_err": max(v["rel_err"] for v in leaves.values()),
-          "leaves": leaves, "bar": f"loss, grad_norm: card vs cpu <= {MODEL_REL}; a leaf: vs_cpu_f32 <= "
+          "leaves": leaves, "bar": f"loss, grad_norm (loss_mtp): card vs cpu <= {MODEL_REL}; a leaf: vs_cpu_f32 <= "
           f"max({MODEL_REL}, {OWN_ROUNDING} x cpu_bf16_vs_f32), of the largest |cpu value|",
-          "f32": {"loss": {"card": card32_m["loss"], "cpu": cpu32_m["loss"]},
-                  "grad_norm": {"card": card32_m["grad_norm"], "cpu": cpu32_m["grad_norm"]},
+          "f32": {**{k: {"card": card32_m[k], "cpu": cpu32_m[k]} for k in ("loss", "grad_norm", *mtp)},
                   "rel_err": scalars32, "max_leaf_rel_err": max(leaves32.values()), "leaves": leaves32,
-                  "bar": f"loss, grad_norm and every leaf: card vs cpu <= {TRAIN_F32_REL} of the largest "
-                  "|cpu value|, TF32 off"},
+                  "bar": f"loss, grad_norm (loss_mtp, aux) and every leaf: card vs cpu <= {TRAIN_F32_REL} of "
+                  "the largest |cpu value|, TF32 off"},
           **moe_row, "kernel_launches": launches, "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0})
     if any(v > MODEL_REL for v in scalars.values()) or any(v > TRAIN_F32_REL for v in scalars32.values()) or over:
         raise AssertionError(f"train_check {arch} over the bar: {scalars} {scalars32} {over}")
@@ -1195,14 +1261,16 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False) -
         raise AssertionError(f"train_check {arch} launched a kernel: {launches}")
 
 
-def phase_train(dev: torch.device, arch: str, steps: int, resume: bool) -> None:
+def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: bool = True) -> None:
     """The training path at full width and depth: ``build_lm_loader`` on the
     card feeding ``Trainer.fit`` on ``arch``, seed-0 weights, seq 4096,
     global batch 8 at the config's own ``grad_accum["train_4k"]``.  Each
     step's time runs to its end on the card.  With ``resume`` a checkpoint
-    is saved at step 4, and a fresh ``Trainer.from_checkpoint`` must restore
-    the parameters and optimizer state bit for bit, the step and the
-    sampler, then take 2 steps.  K1-K4 must not launch."""
+    is saved at step ``TRAIN_CKPT_AT``, and a fresh ``Trainer.from_checkpoint``
+    must restore the parameters and optimizer state bit for bit, the step and the
+    sampler, then take 2 steps.  With ``trace`` one more step runs under
+    the profiler (at 130-280 K kernel launches a step it takes 40-80 s).
+    K1-K4 must not launch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import CheckpointableSampler, SyntheticTokenDataset, build_lm_loader
@@ -1250,17 +1318,17 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool) -> None:
             peaks.append(torch.cuda.max_memory_allocated(dev))
             if resume:
                 row["resume"] = check_resume(dev, cfg, shape, tcfg, trainer, loader)
-                trainer.manager.every = 10**9  # the one checkpoint is step 4's
+                trainer.manager.every = 10**9  # the one checkpoint is step TRAIN_CKPT_AT's
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
                 history += trainer.fit(pipe, steps=steps - first, sampler=sampler)["history"]
                 peaks.append(torch.cuda.max_memory_allocated(dev))
             health = {**trainer.health(), "data_wait_s": trainer.data_wait_s, "step_s": trainer.step_s}
-            # one more step under the profiler, after the readings above
-            t_trace = time.monotonic()
-            row["step_trace"] = trace_step(dev, lambda: trainer.fit(pipe, steps=1, sampler=sampler), "gemm")
-            row["step_trace"]["seconds"] = time.monotonic() - t_trace
-            row["step_trace"]["note"] = f"step {steps + 1} under torch.profiler; kernel_ms sums the GEMM kernels"
+            if trace:  # one more step under the profiler, after the readings above
+                t_trace = time.monotonic()
+                row["step_trace"] = trace_step(dev, lambda: trainer.fit(pipe, steps=1, sampler=sampler), "gemm")
+                row["step_trace"]["seconds"] = time.monotonic() - t_trace
+                row["step_trace"]["note"] = f"step {steps + 1} under torch.profiler; kernel_ms sums the GEMM kernels"
         launches = _kernel_launches()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms, history = step_ms[:steps], history[:steps]
@@ -1272,6 +1340,8 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool) -> None:
         "loss": {h["step"]: h["loss"] for h in history if h["step"] in (1, steps)},
         "grad_norm": {h["step"]: h["grad_norm"] for h in history if h["step"] in (1, steps)},
         "losses": [h["loss"] for h in history],
+        **({"loss_lm": [h["loss_lm"] for h in history], "aux": [h["aux"] for h in history]}
+           if moe_layers(cfg) else {}),
         "max_memory_allocated_gb": max(peaks) / 1e9, "kernel_launches": launches,
         "reading": "the timings and bytes are readings, not gates", "seconds": time.monotonic() - t0,
     })
@@ -1362,7 +1432,12 @@ def main() -> int:
         phase_model_check(dev, "granite-moe-1b-a400m", 256, dtype="float32", conditioned=True)
         phase_model_check(dev, "granite-moe-1b-a400m", 256, conditioned=True)
         phase_model_check(dev, "jamba-1.5-large-398b", 128)  # 1 K3 and 1 K4 launch; 23.8 GB of weights
-        torch.cuda.empty_cache()
+        phase_model_check(dev, "deepseek-v3-671b", 256, dtype="float32")  # 2 dense MLA layers; 14.8 GB
+        release_card()
+        # 3 dense layers, 1 MoE layer; 31.6 GB.  On the seed-0 weights the bf16 outputs sit 4.2-5.1e-2
+        # from the CPU's on an H100: w_uq/w_uk drawn at fan-in over the heads make attention peaked
+        phase_model_check(dev, "deepseek-v3-671b", 128, layers=4, conditioned=True)
+        release_card()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
@@ -1372,11 +1447,18 @@ def main() -> int:
         phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
         phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
         phase_serve(dev, summary, "granite-moe-1b-a400m", "flash_attention", "fa_tc_bf16")
+        release_card()
+        phase_serve(dev, summary, "deepseek-v3-671b", "flash_attention", "fa_tc_bf16", layers=4)
+        release_card()
         phase_train_check(dev, "qwen3-0.6b")
         phase_train_check(dev, "mamba2-780m")
         phase_train_check(dev, "granite-moe-1b-a400m", conditioned=True)
-        phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True)
-        phase_train(dev, "mamba2-780m", 2, resume=False)
+        phase_train_check(dev, "deepseek-v3-671b", seq=DEEPSEEK_CHECK_SEQ, rows=1)  # 2 dense layers + MTP, 3.71 B
+        release_card()
+        # Qwen3's and Mamba2's steps were traced before (PERF.md §5); the time goes to DeepSeek's checks
+        phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True, trace=False)
+        phase_train(dev, "mamba2-780m", 2, resume=False, trace=False)
+        phase_train(dev, "granite-moe-1b-a400m", 2, resume=False)
     except Exception:
         traceback.print_exc()
         return 1

@@ -29,6 +29,13 @@
 //     being multiplied.  Rows are padded by 16 bytes, so the 8 rows an
 //     ldmatrix phase reads fall in 8 distinct 16-byte bank groups.  At hd
 //     128: 17 KB of Q and 68 KB of ring, two blocks an SM.
+//   - hd 192 (DeepSeek's MLA: q and k 128 + 64 rope dims, v zero-padded
+//     from 128 by the caller) holds 24 n8 output blocks, 96 f32 registers
+//     of acc a thread beside up to 64 of scores.  There the Q fragments are
+//     read from shared memory for each k16 step instead of kept in 48 more
+//     registers, and the ring is 3 slots, two tiles ahead: 25 KB of Q and
+//     75 KB of ring, so two blocks still share an SM (4 slots would be
+//     125 KB, one block an SM).
 //   - The softmax step is the wrapper's block_k (64 or 128 keys, one or two
 //     64-key sub-tiles whose scores are all in registers before the step's
 //     max is taken), with the body's arithmetic in f32: s = (q.k) * sm_scale,
@@ -77,8 +84,12 @@ constexpr int kRows = 64;  // query rows per block
 constexpr int kWarps = 4;  // 16 rows each
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeys = 64;  // keys per staged K or V tile
-constexpr int kSlots = 4;  // the K/V ring
 constexpr int kPad = 8;    // bf16 after each staged row (16 bytes)
+
+// The K/V ring's slots, and whether the Q fragments stay in registers (else
+// each k16 step reads them from shared memory), by head dim.
+__host__ __device__ constexpr int ring_slots(int hd) { return hd > 128 ? 3 : 4; }
+__host__ __device__ constexpr bool q_in_registers(int hd) { return hd <= 128; }
 
 // 2**x on the SFU (ex2.approx, 2 ulp; a subnormal result flushes to 0).
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -102,6 +113,8 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
   constexpr int KSTEPS = HD / 16;  // k16 steps of q.k
   constexpr int SBLK = kKeys / 8;  // n8 blocks of a sub-tile's scores
   constexpr int DBLK = HD / 8;     // n8 blocks of the output
+  constexpr int kSlots = ring_slots(HD);
+  constexpr bool kQRegs = q_in_registers(HD);
   constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2**(x log2(e))
   extern __shared__ uint4 smem_u4[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // (64, STRIDE); the output's staging at the end
@@ -165,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
   const int pos0 = warp_first + g;
   const int pos1 = pos0 + 8;
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[kQRegs ? KSTEPS : 1][4];
   float acc[DBLK][4];
 #pragma unroll
   for (int d = 0; d < DBLK; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
@@ -189,10 +202,12 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
 #pragma unroll
     for (int j = 0; j < NSUB; ++j) {
       const __nv_bfloat16* ks = next_tile(tile0 + j);
-      if (tile0 + j == 0) {
+      const __nv_bfloat16* q_frag = qs + (warp * 16 + lane % 16) * STRIDE + (lane / 16) * 8;
+      if constexpr (kQRegs) {
+        if (tile0 + j == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
-          ldmatrix_x4(qf[kk], smem_addr(qs + (warp * 16 + lane % 16) * STRIDE + kk * 16 + (lane / 16) * 8));
+          for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], smem_addr(q_frag + kk * 16));
+        }
       }
       const int sub = step * NSUB + j;
       const int k0 = sub * kKeys;
@@ -202,14 +217,20 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
       for (int nb = 0; nb < SBLK; ++nb) s[j][nb][0] = s[j][nb][1] = s[j][nb][2] = s[j][nb][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t qa[4];
+        if constexpr (kQRegs) {
+          qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
+        } else {
+          ldmatrix_x4(qa, smem_addr(q_frag + kk * 16));
+        }
 #pragma unroll
         for (int np = 0; np < SBLK / 2; ++np) {  // keys 16np .. 16np+15
           uint32_t bf[4];
           const int key = np * 16 + lane % 8 + (lane / 16) * 8;
           const int col = kk * 16 + ((lane / 8) % 2) * 8;
           ldmatrix_x4(bf, smem_addr(ks + key * STRIDE + col));
-          mma(s[j][2 * np], qf[kk], bf[0], bf[1]);
-          mma(s[j][2 * np + 1], qf[kk], bf[2], bf[3]);
+          mma(s[j][2 * np], qa, bf[0], bf[1]);
+          mma(s[j][2 * np + 1], qa, bf[2], bf[3]);
         }
       }
       const bool diagonal = causal && k0 + kKeys - 1 > warp_first;
@@ -292,7 +313,7 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
   }
 
   // acc / max(l, 1e-20), staged in the warp's own 16 rows of qs (no other
-  // warp reads them after the Q fragments are loaded), then 16-byte stores.
+  // warp reads them), then 16-byte stores.
   float l_sum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -302,6 +323,7 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
     l_sum[r] = fmaxf(l_sum[r], 1e-20f);
   }
   __nv_bfloat16* os = qs + warp * 16 * STRIDE;
+  __syncwarp();  // every lane's ldmatrix of these rows is done
 #pragma unroll
   for (int d = 0; d < DBLK; ++d) {
     *reinterpret_cast<__nv_bfloat162*>(os + g * STRIDE + d * 8 + 2 * t) =
@@ -323,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
 template <int HD, int NSUB>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
                    int skv, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (kRows + kSlots * kKeys) * (HD + kPad);
+  const size_t smem = sizeof(__nv_bfloat16) * (kRows + ring_slots(HD) * kKeys) * (HD + kPad);
   auto kernel = fa_tc_bf16<HD, NSUB>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -354,6 +376,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
     case 32: return launch_bk<32>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     case 64: return launch_bk<64>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     case 128: return launch_bk<128>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 192: return launch_bk<192>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -533,6 +556,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
     case 32: return launch<1>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     case 64: return launch<2>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     case 128: return launch<4>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 192: return launch<6>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     case 256: return launch<8>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
@@ -542,8 +566,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 
 }  // namespace
 
-// dtype 0 = bfloat16: fa_tc_bf16, hd 32, 64 or 128, block_k 64 or 128.
-// dtype 1 = float32: fa_cuda_f32, hd 32, 64, 128 or 256, any block_k.
+// dtype 0 = bfloat16: fa_tc_bf16, hd 32, 64, 128 or 192, block_k 64 or 128.
+// dtype 1 = float32: fa_cuda_f32, hd 32, 64, 128, 192 or 256, any block_k.
 // q, k, v and o alike; h % hkv == 0; sq <= skv when causal; skv % block_k
 // == 0.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, int dtype, int b, int h,

@@ -17,8 +17,11 @@ through ``flash_attention_plain`` beside it, a CUDA tensor launches one of
 the two hand-written kernels in ``csrc/flash_attention.cu`` (or raises),
 and each launch of either adds one to ``flash_attention.launches``.  The
 dtype picks the kernel (``kernel_route``): bf16 runs on the tensor cores
-(head dim 32, 64 or 128; ``block_k`` 64 or 128), f32 on the CUDA cores
-(head dim 32, 64, 128 or 256; any ``block_k``).
+(head dim 32, 64, 128 or 192; ``block_k`` 64 or 128), f32 on the CUDA cores
+(head dim 32, 64, 128, 192 or 256; any ``block_k``).  Head dim 192 is
+DeepSeek's MLA prefill: q and k of 128 + 64 rope dims, and v (128 dims)
+zero-padded to 192 by its caller, as the kernel takes one head dim for q,
+k and v, like the reference's.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ from . import _build
 NEG_INF = -(2.0**30)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-TC_HEAD_DIMS = (32, 64, 128)  # bf16: Q fragments and the f32 output of 16 rows stay in registers
+TC_HEAD_DIMS = (32, 64, 128, 192)  # bf16: the f32 output of 16 rows stays in registers
 TC_BLOCK_KS = (64, 128)  # bf16: the softmax step is one or two 64-key tiles
-F32_HEAD_DIMS = (32, 64, 128, 256)
+F32_HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
 def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> None:

@@ -1,6 +1,7 @@
-"""GQA/MHA attention (optionally qk-norm and QKV bias).
+"""Attention blocks: GQA/MHA (optionally qk-norm and QKV bias) and
+DeepSeek's Multi-head Latent Attention (MLA).
 
-Three entry points:
+Three entry points for each:
   - ``attn_train``: causal self-attention over packed documents (positions
     and segment ids), differentiable, in plain PyTorch: the reference trains
     through its jnp ``_sdpa``, plain attention up to ``attn_chunk`` keys
@@ -13,7 +14,16 @@ Three entry points:
   - ``attn_decode``: one new token against a preallocated cache, written
     in place, with plain masked attention over the cache's capacity.
 
-The reference's MLA (DeepSeek) is not ported yet (ROADMAP).
+MLA (``mla_train``, ``mla_prefill``, ``mla_decode``) keeps a latent cache:
+the normalized kv latent ``ckv`` (rank 512 at full size) and the shared
+rope key ``k_rope`` (64), not per-head k and v.  Training and prefill take
+the non-absorbed form, per-head q and k of 128 + 64 dims and v of 128:
+training through ``_sdpa`` as above, prefill through the kernel with the
+128 heads as kv groups of 1 and v zero-padded to q's head dim (the kernel
+takes one head dim for q, k and v), the output cut back.  Decode takes the
+absorbed form in plain tensor products: ``w_uk`` folded into the query,
+scores against the latent cache, ``w_uv`` applied after, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -50,6 +60,22 @@ def attn_defs(cfg: ModelConfig) -> dict:
         p["q_norm"] = ParamDef((hd,), (None,), torch.float32, "ones")
         p["k_norm"] = ParamDef((hd,), (None,), torch.float32, "ones")
     return p
+
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    d, h, m = cfg.d_model, cfg.num_heads, cfg.mla
+    dt = dtype_of(cfg)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": ParamDef((d, m.q_lora_rank), ("embed", None), dt),
+        "q_norm": ParamDef((m.q_lora_rank,), (None,), torch.float32, "ones"),
+        "w_uq": ParamDef((m.q_lora_rank, h, qk), (None, "heads", None), dt),
+        "w_dkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None), dt),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), torch.float32, "ones"),
+        "w_uk": ParamDef((m.kv_lora_rank, h, m.qk_nope_head_dim), (None, "heads", None), dt),
+        "w_uv": ParamDef((m.kv_lora_rank, h, m.v_head_dim), (None, "heads", None), dt),
+        "wo": ParamDef((h, m.v_head_dim, d), ("heads", None, "embed"), dt, fan_in_dims=(0, 1)),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -240,3 +266,82 @@ def attn_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int):
         1.0 / math.sqrt(cfg.resolved_head_dim),
     )
     return _out(o.reshape(b, 1, cfg.num_heads, cfg.resolved_head_dim), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x, positions):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), RoPE on the rope dims only."""
+    m = cfg.mla
+    q = _proj(rms_norm_simple(x @ p["w_dq"], p["q_norm"]), p["w_uq"])
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def _mla_kv_latent(cfg: ModelConfig, p: dict, x, positions):
+    """(ckv (B,S,rank), k_rope (B,S,rope)): what the cache holds."""
+    m = cfg.mla
+    dkv = x @ p["w_dkv"]
+    ckv = rms_norm_simple(dkv[..., :m.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope
+
+
+def _mla_qkv(cfg: ModelConfig, p: dict, x, positions):
+    """The non-absorbed form: q and k (B,S,H,nope+rope), every head's k
+    sharing the one rope key, and v (B,S,H,v_head_dim); and the latents."""
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv, k_rope = _mla_kv_latent(cfg, p, x, positions)
+    k_nope = _proj(ckv, p["w_uk"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], k_rope.shape[-1])], dim=-1)
+    return q, k, _proj(ckv, p["w_uv"]), ckv, k_rope
+
+
+def mla_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
+    """Causal MLA over x (B,S,D) within each document, through ``_sdpa``
+    with the heads as kv groups of 1; the scale is 1/sqrt(nope + rope)."""
+    q, k, v, _, _ = _mla_qkv(cfg, p, x, positions)
+    o = _sdpa(cfg, q[:, :, :, None, :], k, v, positions, positions, segment_ids, segment_ids)
+    return _out(o[:, :, :, 0, :], p["wo"])
+
+
+def mla_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
+    """Causal MLA over the prompt x (B,S,D) in the kernel (masked by index,
+    as ``attn_prefill``): q and k of nope + rope dims, v zero-padded to that
+    width, whose extra output columns are then zero and cut off; the scale
+    is the kernel's default 1/sqrt(nope + rope), the reference's.  Writes
+    the latents into ``cache["ckv"|"k_rope"][:, :S]``."""
+    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, x, positions)
+    s = x.shape[1]
+    cache["ckv"][:, :s] = ckv
+    cache["k_rope"][:, :s] = k_rope
+    vd = v.shape[-1]
+    o = _causal_flash(q[:, :, :, None, :], k, torch.nn.functional.pad(v, (0, q.shape[-1] - vd)))
+    return _out(o[..., :vd], p["wo"])
+
+
+def mla_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int):
+    """x (B,1,D) at position ``pos``: its latents are written into the cache
+    slot ``pos`` in place, and it attends to slots 0..pos in the absorbed
+    form, scores in f32 against the latent cache."""
+    m = cfg.mla
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)  # (B,1,H,·)
+    ckv_new, kr_new = _mla_kv_latent(cfg, p, x, positions)
+    cache["ckv"][:, pos:pos + 1] = ckv_new
+    cache["k_rope"][:, pos:pos + 1] = kr_new
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+    q_lat = torch.einsum("bqkh,rkh->bqkr", q_nope, p["w_uk"])  # w_uk folded into the query
+    s_lat = torch.einsum("bqkr,bsr->bkqs", q_lat.float(), ckv.float())
+    s_rope = torch.einsum("bqkh,bsh->bkqs", q_rope.float(), k_rope.float())
+    s = (s_lat + s_rope) * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    kv_ok = torch.arange(ckv.shape[1], device=x.device) <= pos  # unwritten slots masked
+    prob = torch.softmax(torch.where(kv_ok, s, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bkqs,bsr->bqkr", prob.to(ckv.dtype), ckv)
+    o = torch.einsum("bqkr,rkh->bqkh", o_lat, p["w_uv"])  # (B,1,H,v_head_dim)
+    return _out(o, p["wo"])

@@ -7,9 +7,11 @@
   ``new_cache(batch, seq_cap, device)`` allocates it.
 
 Dense GQA decoders, attention-free Mamba2 (SSD) stacks, and either with
-Mixture-of-Experts FFNs (Granite-MoE; Jamba's hybrid attention/SSD stack).
-MLA, the multi-codebook audio head, the vision prefix and MTP come with
-later slices (ROADMAP §1).
+Mixture-of-Experts FFNs (Granite-MoE; Jamba's hybrid attention/SSD stack);
+DeepSeek-V3's MLA attention with its latent cache, and its multi-token
+prediction (MTP) loss in training.  The multi-codebook audio head
+(MusicGen) and the vision prefix (InternVL2) are not ported: ``Model``
+raises ``NotImplementedError`` for them (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -29,32 +31,40 @@ from .layers import (
     mask_padded_vocab,
     norm_defs,
 )
-from .params import init_params, param_count
+from .params import ParamDef, init_params, param_count
+
+MTP_WEIGHT = 0.3
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.n_codebooks > 1 or cfg.vis_prefix_len or cfg.mtp:
+        if cfg.n_codebooks > 1 or cfg.vis_prefix_len:
             raise NotImplementedError(
-                f"{cfg.name}: multi-codebook heads, vision prefixes and MTP are not "
-                "ported yet (ROADMAP §1)"
+                f"{cfg.name}: multi-codebook heads and vision prefixes are not ported yet (ROADMAP §1)"
             )
-        for kind, _ in cfg.layer_plan():
-            tf.check_supported(kind)
         self.cfg = cfg
-        self._has_attention = any(kind == "attn" for kind, _ in cfg.layer_plan())
+        self._has_attention = any(kind in ("attn", "mla") for kind, _ in cfg.layer_plan())
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
     def param_defs(self) -> dict:
         cfg = self.cfg
-        return {
+        d = {
             "embed": embed_defs(cfg),
             "segments": tf.segment_defs(cfg),
             "final_norm": norm_defs(cfg),
             "head": head_defs(cfg),
         }
+        if cfg.mtp:
+            d["mtp"] = {
+                "proj": ParamDef((2 * cfg.d_model, cfg.d_model), (None, "embed"), dtype_of(cfg)),
+                "norm_h": norm_defs(cfg),
+                "norm_e": norm_defs(cfg),
+                "block": tf.block_defs(cfg, cfg.block_kinds()[0], False),
+                "final_norm": norm_defs(cfg),
+            }
+        return d
 
     def init(self, seed: int, device: torch.device | str | None = None) -> dict:
         """Parameters drawn from ``seed`` on ``device`` (``None`` = the card)."""
@@ -82,8 +92,9 @@ class Model:
         masked; ``positions`` (default ``arange(S)``) and ``segment_ids``
         (default zeros), which packed rows restart and number per document.
         Returns the loss (the mean next-token loss plus the MoE layers'
-        summed load-balance loss) and {"loss_lm", "aux", "loss"} (``aux``
-        is zero without MoE layers)."""
+        summed load-balance loss, plus ``MTP_WEIGHT`` times the MTP loss
+        where the config has it) and {"loss_lm", "aux", "loss"} (``aux`` is
+        zero without MoE layers), with "loss_mtp" beside them for MTP."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
@@ -100,7 +111,39 @@ class Model:
         h = apply_norm(cfg, params["final_norm"], x)
         loss_lm = self._lm_loss(params, h, batch)
         loss = loss_lm + aux_total
-        return loss, {"loss_lm": loss_lm, "aux": aux_total, "loss": loss}
+        metrics = {"loss_lm": loss_lm, "aux": aux_total}
+        if cfg.mtp:
+            loss_mtp = self._mtp_loss(params, x, batch, positions, segment_ids)
+            loss = loss + MTP_WEIGHT * loss_mtp
+            metrics["loss_mtp"] = loss_mtp
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, params: dict, h, batch: dict, positions, segment_ids) -> torch.Tensor:
+        """DeepSeek-V3's multi-token prediction, one extra depth: at position
+        t the backbone's output h_t (before the final norm), joined with the
+        embedding of token t+1, goes through one more block of the first
+        layer's kind (dense FFN) and the shared head to predict token t+2,
+        the label at t+1.  ``torch.roll`` wraps as ``jnp.roll`` does; the
+        last 2 positions have no t+2 target and are masked."""
+        cfg = self.cfg
+        mtp = params["mtp"]
+        tokens, labels = batch["tokens"], batch["labels"]
+        if tokens.dim() == 3:
+            tokens = tokens[..., 0]
+        if labels.dim() == 3:
+            labels = labels[..., 0]
+        emb_next = apply_embed(cfg, params["embed"], torch.roll(tokens, -1, dims=1))
+        z = torch.cat([apply_norm(cfg, mtp["norm_h"], h), apply_norm(cfg, mtp["norm_e"], emb_next)], dim=-1)
+        z, _ = tf.block_apply_train(
+            cfg, cfg.block_kinds()[0], False, mtp["block"], z @ mtp["proj"], positions, segment_ids
+        )
+        z = apply_norm(cfg, mtp["final_norm"], z)
+        logits = mask_padded_vocab(cfg, apply_head(cfg, params["head"], params["embed"], z))
+        labels_p1 = torch.roll(labels, -1, dims=1)
+        mask = (labels_p1 >= 0).float()
+        mask[:, -2:] = 0.0
+        return cross_entropy(logits, labels_p1, mask)
 
     # ------------------------------------------------------------------
     # cache
@@ -109,10 +152,12 @@ class Model:
         """Shapes and dtypes of the cache, in the prefill cache's structure:
         per segment ``{"blocks": [...]}``, one dict per block of the
         super-block, each entry (n_repeat, B, ...).  Attention blocks hold
-        k/v (n_repeat, B, seq_cap, kv_heads, head_dim); SSD blocks hold the
-        state ``ssm`` (n_repeat, B, H, P, N) f32 and the conv window
-        ``conv`` (n_repeat, B, d_conv - 1, conv_dim), neither of which
-        depends on ``seq_cap``."""
+        k/v (n_repeat, B, seq_cap, kv_heads, head_dim); MLA blocks the
+        latents ``ckv`` (n_repeat, B, seq_cap, kv_lora_rank) and ``k_rope``
+        (n_repeat, B, seq_cap, qk_rope_head_dim); SSD blocks hold the state
+        ``ssm`` (n_repeat, B, H, P, N) f32 and the conv window ``conv``
+        (n_repeat, B, d_conv - 1, conv_dim), neither of which depends on
+        ``seq_cap``."""
         return [
             {"blocks": [self._mixer_cache_spec(kind, n_repeat, batch, seq_cap) for kind, _ in plan]}
             for plan, n_repeat in self.cfg.segments()
@@ -124,6 +169,9 @@ class Model:
         if kind == "attn":
             shape = (n, b, s_cap, cfg.num_kv_heads, cfg.resolved_head_dim)
             return {"k": (shape, dt), "v": (shape, dt)}
+        if kind == "mla":
+            m = cfg.mla
+            return {"ckv": ((n, b, s_cap, m.kv_lora_rank), dt), "k_rope": ((n, b, s_cap, m.qk_rope_head_dim), dt)}
         s = cfg.ssd
         conv_dim = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
         return {
@@ -152,8 +200,8 @@ class Model:
         ``ValueError``.
 
         An attention cache has capacity ``seq_cap`` (default S) and holds the
-        prompt's k/v in slots 0..S-1; decode steps write the slots after
-        them.  An SSD cache holds the state after the prompt."""
+        prompt's k/v (MLA: its latents) in slots 0..S-1; decode steps write
+        the slots after them.  An SSD cache holds the state after the prompt."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = apply_embed(cfg, params["embed"], tokens)

@@ -4,12 +4,13 @@
 super-blocks.  Parameters of a segment are stacked (leading "layers" dim),
 as in the reference, and a segment is applied by a Python loop over that
 dim, indexing views of the stacked weights and caches (the reference's
-``lax.scan``).  Two mixers: GQA attention (``attn``, prefill in the
-``flash_attention`` kernel) and the Mamba2 SSD block (``ssd``, prefill in
-the ``ssd_scan`` kernel); training runs both in plain PyTorch under
-autograd, with each layer recomputed in the backward pass when
-``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan body).  MLA
-and MoE blocks wait for their slices (ROADMAP §1).
+``lax.scan``).  Three mixers: GQA attention (``attn``) and DeepSeek's MLA
+(``mla``), each with its prefill in the ``flash_attention`` kernel, and the
+Mamba2 SSD block (``ssd``, prefill in the ``ssd_scan`` kernel); training
+runs them in plain PyTorch under autograd, with each layer recomputed in
+the backward pass when ``cfg.remat`` (the reference's ``jax.checkpoint`` of
+the scan body).  The FFN of a layer is dense or Mixture-of-Experts
+(``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -24,17 +25,10 @@ from . import attention, moe, ssm
 from .layers import apply_ffn, apply_norm, ffn_defs, norm_defs
 from .params import ParamDef, tree_map_defs
 
-MIXER_DEFS = {"attn": attention.attn_defs, "ssd": ssm.ssd_defs}
-MIXER_TRAIN = {"attn": attention.attn_train, "ssd": ssm.ssd_block_train}
-MIXER_PREFILL = {"attn": attention.attn_prefill, "ssd": ssm.ssd_block_prefill}
-MIXER_DECODE = {"attn": attention.attn_decode, "ssd": ssm.ssd_block_decode}
-
-_NOT_PORTED = {"mla": "MLA attention waits for the DeepSeek slice (ROADMAP §1, MLA and MTP)"}
-
-
-def check_supported(kind: str) -> None:
-    if kind not in MIXER_DEFS:
-        raise NotImplementedError(_NOT_PORTED.get(kind, f"unknown block kind {kind!r}"))
+MIXER_DEFS = {"attn": attention.attn_defs, "mla": attention.mla_defs, "ssd": ssm.ssd_defs}
+MIXER_TRAIN = {"attn": attention.attn_train, "mla": attention.mla_train, "ssd": ssm.ssd_block_train}
+MIXER_PREFILL = {"attn": attention.attn_prefill, "mla": attention.mla_prefill, "ssd": ssm.ssd_block_prefill}
+MIXER_DECODE = {"attn": attention.attn_decode, "mla": attention.mla_decode, "ssd": ssm.ssd_block_decode}
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,12 @@ is allocated once at ``prompt_len + max_new`` and written in place.
 
 Which kernel a prefill launches depends on the block kind: attention
 blocks (Qwen3 and the other dense decoders) run the hand-written
-``flash_attention`` kernel, once a layer, and keep a KV cache; Mamba2 SSD
-blocks run the hand-written ``ssd_scan`` kernel, once a layer, and keep a
-fixed-size state (``ssm`` and ``conv``).  Decode steps run plain PyTorch:
-masked attention over the KV cache, or the one-token SSD recurrence.  An
+``flash_attention`` kernel, once a layer, and keep a KV cache; DeepSeek's
+MLA blocks run it too and keep the latent cache (``ckv`` and ``k_rope``);
+Mamba2 SSD blocks run the hand-written ``ssd_scan`` kernel, once a layer,
+and keep a fixed-size state (``ssm`` and ``conv``).  Decode steps run plain
+PyTorch: masked attention over the KV cache (MLA's absorbed into the
+latent space), or the one-token SSD recurrence.  An
 SSD prompt is scanned in chunks of the reference's size
 (``models.ssm.scan_chunk``: ``SSDConfig.chunk`` where it divides
 ``prompt_len``, else the largest power of two that does).
@@ -63,9 +65,14 @@ class BatchServer:
 
     # -- request pipeline -----------------------------------------------------
     def _batches(self, prompts: Iterable[str]):
+        # the stages capture what they read, not the server: the pipeline's
+        # objects hold one another in cycles, which would keep the server's
+        # parameters alive after the pipeline stops, until the collector runs
+        tok, prompt_len = self.tok, self.prompt_len
+
         def tokenize(p: str) -> dict:
-            ids = self.tok.encode(p, add_eos=False)[: self.prompt_len]
-            padded = np.zeros(self.prompt_len, np.int32)
+            ids = tok.encode(p, add_eos=False)[:prompt_len]
+            padded = np.zeros(prompt_len, np.int32)
             padded[-len(ids):] = ids  # left-pad so decode positions align
             return {"prompt": p, "tokens": padded}
 

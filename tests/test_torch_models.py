@@ -3,13 +3,17 @@
 The reference ``Model`` is initialized on a smoke config (qwen3, a dense
 GQA decoder; mamba2, an attention-free SSD stack; granite-moe, a GQA
 decoder whose every FFN is a Mixture-of-Experts; jamba, one super-block of
-attention and 7 SSD layers with MoE on every other) from ``PRNGKey(0)``; its
-parameters cross to the port with ``params_from_reference``; the same
-seeded tokens then go through both ``prefill`` (the port's attention in
-``flash_attention`` and its SSD scan in ``ssd_scan``, the reference's in
-its plain jnp softmax and ``ssd_chunked``) and four ``decode_step``s fed
-the same forced tokens.  Logits and caches (k/v of attention blocks, the
-``ssm`` state and ``conv`` window of SSD blocks) are compared after each.
+attention and 7 SSD layers with MoE on every other; deepseek, MLA with a
+dense layer then MoE layers with a shared expert; olmo, yi and qwen1.5,
+dense decoders with non-parametric layer norm or QKV bias) from
+``PRNGKey(0)``; its parameters cross to the port with
+``params_from_reference``; the same seeded tokens then go through both
+``prefill`` (the port's attention, MLA's too, in ``flash_attention`` and
+its SSD scan in ``ssd_scan``, the reference's in its plain jnp softmax and
+``ssd_chunked``) and four ``decode_step``s fed the same forced tokens.
+Logits and caches (k/v of attention blocks, MLA's ``ckv`` and ``k_rope``,
+the ``ssm`` state and ``conv`` window of SSD blocks) are compared after
+each.
 
 Bars: f32, atol = rtol = 1e-4.  bf16, 2e-2 of the largest reference value
 (measured on the CPU: logits up to 8.0e-3 and caches up to 6.9e-3 of it);
@@ -32,12 +36,16 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.models import Model, params_from_reference  # noqa: E402
 from repro_torch.models.params import ParamDef, init_params, param_count  # noqa: E402
-from torch_parity import SWAP_GAP, reference_routes, reference_stack  # noqa: E402,F401
+from torch_parity import SWAP_GAP, condition_attention, reference_routes, reference_stack  # noqa: E402,F401
 
 import route_check  # noqa: E402  (tools/, put on the path by torch_parity)
 
 ARCH = "qwen3-0.6b"
-ARCHS = ["qwen3-0.6b", "mamba2-780m", "granite-moe-1b-a400m", "jamba-1.5-large-398b"]
+ARCHS = ["qwen3-0.6b", "mamba2-780m", "granite-moe-1b-a400m", "jamba-1.5-large-398b", "deepseek-v3-671b",
+         "olmo-1b", "yi-6b", "qwen1.5-110b"]
+# bf16 on condition_attention's weights (its docstring says why): the
+# GQA decoders without qk_norm, and MLA
+CONDITIONED = ("granite-moe-1b-a400m", "olmo-1b", "yi-6b", "qwen1.5-110b", "deepseek-v3-671b")
 # S = 3 key tiles of 8: the online softmax crosses tiles; for mamba2 the
 # reference picks chunk 8 (its 16 does not divide 24): the scan crosses chunks
 B, S, STEPS = 2, 24, 4
@@ -72,30 +80,13 @@ def _configs(ref, dtype, arch=ARCH):
     return ref_cfg, cfg
 
 
+GROWN = ("k", "v", "ckv", "k_rope")  # attention's k/v, MLA's latents
+
+
 def _grow(name, x):
-    if name in ("k", "v"):
-        return jnp.pad(x, [(0, 0), (0, 0), (0, STEPS), (0, 0), (0, 0)])
+    if name in GROWN:  # (n, B, S, ...): capacity S + STEPS
+        return jnp.pad(x, [(0, 0), (0, 0), (0, STEPS)] + [(0, 0)] * (x.ndim - 3))
     return x  # the SSD state does not grow
-
-
-def _condition_attention(cfg, params_np):
-    """A parameter tree of the reference (numpy leaves) with each attention
-    block's wq and wk scaled as if drawn at fan-in d_model: by sqrt(heads /
-    d_model) and sqrt(kv_heads / d_model).  The reference draws them with
-    fan-in over the heads dim, so without qk_norm a score spreads over tens
-    and attention is nearly one-hot: bf16 rounding then moves the weights
-    of near-tied keys far, in each framework's own way, and a bf16 bar
-    between them shows little.  Measured on the CPU, granite-smoke
-    (PRNGKeys 0-3): the port's bf16 outputs 1.5-4.0e-2 of the largest
-    value from the reference's on the reference's weights, 0.66-0.91e-2 on
-    these.  Both frameworks get the same scaled weights."""
-    scale = {"wq": (cfg.num_heads / cfg.d_model) ** 0.5, "wk": (cfg.num_kv_heads / cfg.d_model) ** 0.5}
-
-    def one(path, a):
-        name = getattr(path[-1], "key", None)
-        return (np.asarray(a, np.float32) * scale[name]).astype(a.dtype) if name in scale else a
-
-    return jax.tree_util.tree_map_with_path(one, params_np)
 
 
 def _launches() -> tuple[int, int]:
@@ -122,14 +113,14 @@ def test_prefill_and_decode_match_the_reference(reference_stack, monkeypatch, ar
     other tokens' outputs; the port's own choices are compared with the
     reference's: in f32 they must be equal, in bf16 they may differ only
     where the reference's k-th and (k+1)-th probabilities lie within
-    SWAP_GAP.  In bf16 granite-moe runs on ``_condition_attention``'s
+    SWAP_GAP.  In bf16 granite-moe runs on ``condition_attention``'s
     weights, and jamba is held to HYBRID_BF16_REL (each says why)."""
     ref = reference_stack
     ref_cfg, cfg = _configs(ref, dtype, arch)
     ref_model = ref.Model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
-    if dtype == "bfloat16" and arch == "granite-moe-1b-a400m":
-        ref_params = jax.tree.map(jnp.asarray, _condition_attention(cfg, jax.tree.map(np.asarray, ref_params)))
+    if dtype == "bfloat16" and arch in CONDITIONED:
+        ref_params = jax.tree.map(jnp.asarray, condition_attention(cfg, jax.tree.map(np.asarray, ref_params)))
     rel = HYBRID_BF16_REL if arch == "jamba-1.5-large-398b" else BF16_REL
     model = Model(cfg)
     params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
@@ -172,7 +163,7 @@ def test_prefill_and_decode_match_the_reference(reference_stack, monkeypatch, ar
                 for name in blk:
                     g, w = blk[name], want_blk[name]
                     assert g.dtype == _TORCH_DTYPE[str(w.dtype)]
-                    if when == "prefill" and name in ("k", "v"):  # capacity S + STEPS, the prompt in 0..S-1
+                    if when == "prefill" and name in GROWN:  # capacity S + STEPS, the prompt in 0..S-1
                         assert not g[:, :, S:].any()
                     _close(g, w, dtype, f"{when} cache {name}", rel)
     for t in range(STEPS):
@@ -234,7 +225,7 @@ def test_init_params_draws_the_reference_scales():
     assert all(torch.equal(p[k], again[k]) for k in defs)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "musicgen-medium", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-2b"])
 def test_blocks_of_later_slices_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(port_configs.get_smoke_config(arch))

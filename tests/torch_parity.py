@@ -44,6 +44,37 @@ def assert_f32_close(got, want) -> None:
     )
 
 
+def condition_attention(cfg, params_np):
+    """A parameter tree of the reference (numpy leaves) with each attention
+    block's wq and wk scaled as if drawn at fan-in d_model: by sqrt(heads /
+    d_model) and sqrt(kv_heads / d_model); an MLA block's w_uq and w_uk as if
+    drawn at fan-in over their latent rank: by sqrt(heads / q_lora_rank) and
+    sqrt(heads / kv_lora_rank).  The reference draws them with
+    fan-in over the heads dim, so without qk_norm a score spreads over tens
+    and attention is nearly one-hot: bf16 rounding then moves the weights
+    of near-tied keys far, in each framework's own way, and a bf16 bar
+    between them shows little.  Measured on the CPU, granite-smoke
+    (PRNGKeys 0-3): the port's bf16 outputs 1.5-4.0e-2 of the largest
+    value from the reference's on the reference's weights, 0.66-0.91e-2 on
+    these; olmo, yi and qwen1.5 (PRNGKeys 0-2) 1.3-6.8e-2 and 0.71-1.12e-2;
+    deepseek (PRNGKeys 0-2, the reference's routes replayed) logits
+    2.4-3.0e-2 and 1.10-1.64e-2, the port's own MoE choices differing at
+    gaps up to 1.2e-2 and 2.3e-3.  Both frameworks get the same scaled
+    weights."""
+    import jax
+
+    scale = {"wq": (cfg.num_heads / cfg.d_model) ** 0.5, "wk": (cfg.num_kv_heads / cfg.d_model) ** 0.5}
+    if cfg.mla is not None:
+        scale = {"w_uq": (cfg.num_heads / cfg.mla.q_lora_rank) ** 0.5,
+                 "w_uk": (cfg.num_heads / cfg.mla.kv_lora_rank) ** 0.5}
+
+    def one(path, a):
+        name = getattr(path[-1], "key", None)
+        return (np.asarray(a, np.float32) * scale[name]).astype(a.dtype) if name in scale else a
+
+    return jax.tree_util.tree_map_with_path(one, params_np)
+
+
 # ---------------------------------------------------------------------------
 # the reference model stack, importable through a stub ``repro.dist``
 # ---------------------------------------------------------------------------
