@@ -1,6 +1,6 @@
 """Drive the PyTorch port's image path, its LM serving path (dense, SSD,
-Mixture-of-Experts and MLA models) and its LM training path on one CUDA
-card and check them.
+Mixture-of-Experts, MLA, multi-codebook and vision-prefix models) and its
+LM training path on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -39,9 +39,15 @@ and a copy of the same bytes), then runs
     attention layers, each FFN 32 experts top 8), K3 in its prefill;
   - ``BatchServer`` on DeepSeek-V3 at full width, cut to 4 layers, K3 in
     its MLA prefill;
-  - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M and
-    DeepSeek-V3 at full width, cut to 2 layers (DeepSeek's MTP block
-    beside them), on the card against the same step on the CPU, in f32
+  - MusicGen-medium (48 layers, four codebooks) and InternVL2-2B (24
+    layers, a vision prefix of 256 positions) at full width and depth
+    through ``build_prefill_step`` and ``build_decode_step`` in the
+    server's greedy loop (``BatchServer`` takes byte prompts, which carry
+    neither), K3 in every prefill; each checked before at 2 layers against
+    the CPU in f32 and bf16;
+  - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M,
+    DeepSeek-V3, MusicGen-medium and InternVL2-2B at full width, cut to 2
+    layers (DeepSeek's MTP block beside them), on the card against the same step on the CPU, in f32
     with TF32 off and in bf16 (``train_check``; Granite's aux loss and
     routes, DeepSeek's MTP loss too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
@@ -555,6 +561,7 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("ragged_rows", 1, 4, 2, 96, 192, 128, bf16, True, 32, 64),  # sq not a multiple of 64 rows
         ("f32_hd64", 2, 8, 2, 384, 384, 64, f32, False, 128, 64),
         ("granite", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 64, bf16, True, 128, 128),  # Granite-MoE's prefill
+        ("musicgen", 8, 24, 24, SERVE_PROMPT, SERVE_PROMPT, 64, bf16, True, 128, 128),  # MusicGen's: MHA, groups of 1
         ("jamba", 2, 64, 8, 128, 128, 128, bf16, True, 128, 128),  # Jamba's model_check prefill
         # DeepSeek-V3's MLA prefill: 128 heads as kv groups of 1, q and k of
         # 128 + 64 rope dims, v of 128 zero-padded to 192
@@ -583,12 +590,12 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
             raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
         if name.startswith("mla") and got[..., MLA_V_DIM:].any():
             raise AssertionError(f"flash_attention {name}: the zero-padded v's output columns are not zero")
-        if name in ("main", "f32", "granite", "mla", "mla_f32", "mla_block_k64"):
+        if name in ("main", "f32", "granite", "musicgen", "mla", "mla_f32", "mla_block_k64"):
             row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
             ops = 4 * hd * causal_pairs(sq, skv, causal) * b * h
             row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S, card))
-        if name in ("main", "granite", "mla"):
+        if name in ("main", "granite", "musicgen", "mla"):
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
             if name == "mla":  # SDPA takes v's own 128 dims; its default scale is 1/sqrt(192), as K3's
                 v_lib = v[..., :MLA_V_DIM].contiguous()
@@ -599,8 +606,11 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
                 row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
             row["over_library"] = row["ms"] / row["library_ms"]
             row["over_bound"] = row["ms"] / row["bound_ms"]
-        if name in ("granite", "mla"):
+        if name in ("granite", "musicgen", "mla"):
             entry[name] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name == "musicgen":  # the instance its prefill runs
+            instance = f"fa_tc_bf16<{hd},{bk // 64}>"
+            row["ptxas"] = entry[name]["ptxas"] = {instance: ptxas.get(instance)}
         if name in ("mla_f32", "mla_block_k64"):
             entry["mla"][f"{name[4:]}_ms"] = row["ms"]
         if name == "main":
@@ -743,21 +753,34 @@ def moe_layers(cfg) -> int:
     return sum(is_moe for _, is_moe in cfg.layer_plan())
 
 
-def serve_run(model, params, tokens, forced, device, vocab: int, replay: list | None = None) -> dict:
-    """A prefill of ``tokens`` then one decode step a row of ``forced`` on
+def prompt_batch(cfg, b: int, s: int, gen: torch.Generator) -> dict:
+    """Seeded prefill inputs for ``cfg``: token ids (b, s), or (b, s,
+    n_codebooks) codebook ids for MusicGen; a vision-prefix config also
+    gets ``vis_embed`` (b, vis_prefix_len, d_model), bf16 N(0, 1), which
+    the model splices over the first positions."""
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, s)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen)}
+    if cfg.vis_prefix_len:
+        batch["vis_embed"] = torch.randn((b, cfg.vis_prefix_len, cfg.d_model), generator=gen).to(torch.bfloat16)
+    return batch
+
+
+def serve_run(model, params, batch: dict, forced, device, vocab: int, replay: list | None = None) -> dict:
+    """A prefill of ``batch`` (``tokens``, and ``vis_embed`` for a
+    vision-prefix config) then one decode step a row of ``forced`` on
     ``device``: the logits (vocab columns), the prefill cache (a copy), the
     final cache, and each MoE layer's router probabilities and expert
     choices in call order (``replay``: another run's choices to take)."""
     import route_check
     from repro_torch.tree import tree_map
 
-    s, steps = tokens.shape[1], forced.shape[0]
+    s, steps = batch["tokens"].shape[1], forced.shape[0]
     with route_check.RouteRecorder(replay) as routes:
-        logits, cache = model.prefill(params, {"tokens": tokens.to(device)}, seq_cap=s + steps)
-        out = {"logits": [logits[:, :vocab]], "prefill_cache": tree_map(lambda t: t.clone(), cache)}
+        logits, cache = model.prefill(params, {k: v.to(device) for k, v in batch.items()}, seq_cap=s + steps)
+        out = {"logits": [logits[..., :vocab]], "prefill_cache": tree_map(lambda t: t.clone(), cache)}
         for t in range(steps):
             logits, cache = model.decode_step(params, cache, forced[t].to(device), s + t)
-            out["logits"].append(logits[:, :vocab])
+            out["logits"].append(logits[..., :vocab])
     out["final_cache"], out["probs"], out["idx"] = cache, routes.probs, routes.idx
     return out
 
@@ -799,8 +822,9 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     """``arch`` at full width, ``layers`` layers (2 by default, for the CPU
     run's sake), in its own dtype or ``dtype``: the port on the card
     against the same model and weights on the CPU, prefill of ``seq``
-    tokens then 4 forced decode
-    steps, logits and every cache entry (k/v of attention blocks, the ssm
+    tokens (``prompt_batch``: MusicGen's (2, seq, 4) codebook ids,
+    InternVL2's vision prefix over the first 256 of them) then 4 forced
+    decode steps, logits and every cache entry (k/v of attention blocks, the ssm
     state and conv window of SSD blocks), each within MODEL_REL (bf16) or
     TRAIN_F32_REL (f32, TF32 off) of its largest CPU value.  The card's
     prefill launches one kernel a layer, K3 for attention and K4 for SSD,
@@ -824,19 +848,19 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     model = Model(cfg)
     b, s, steps = 2, seq, 4
     rng = torch.Generator(device="cpu").manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=rng)
-    forced = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=rng)
+    batch = prompt_batch(cfg, b, s, rng)
+    forced = torch.randint(0, cfg.vocab_size, (steps, *batch["tokens"][:, :1].shape), generator=rng)
     t0 = time.monotonic()
     with torch.inference_mode():
         params = model.init(seed=0, device=dev)
         if conditioned:
             condition_attention(cfg, params)
         host_params = tree_map(lambda t: t.cpu(), params)
-        cpu = serve_run(model, host_params, tokens, forced, torch.device("cpu"), cfg.vocab_size)
+        cpu = serve_run(model, host_params, batch, forced, torch.device("cpu"), cfg.vocab_size)
         del host_params
         cpu_s = time.monotonic() - t0
         _zero_kernel_launches()
-        card = serve_run(model, params, tokens, forced, dev, cfg.vocab_size, cpu["idx"] if moe_layers(cfg) else None)
+        card = serve_run(model, params, batch, forced, dev, cfg.vocab_size, cpu["idx"] if moe_layers(cfg) else None)
         sync(dev)
         launches = {"flash_attention": flash_attention.flash_attention.launches,
                     "ssd_scan": ssd_scan.ssd_scan.launches}
@@ -983,16 +1007,37 @@ def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
             "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
+def greedy(prefill, decode, params, batch: dict) -> list[list]:
+    """``BatchServer._generate_batch``'s loop on one batch through the step
+    functions: a prefill, then SERVE_NEW greedy decode steps (argmax over
+    the last dim, first index on ties; a multi-codebook config feeds its
+    (B, n_codebooks) ids back as (B, 1, n_codebooks)); each row's ids."""
+    logits, cache = prefill(params, batch, seq_cap=SERVE_PROMPT + SERVE_NEW)
+    cur = logits.argmax(dim=-1)
+    steps = []
+    for t in range(SERVE_NEW):
+        steps.append(cur)
+        logits, cache = decode(params, cache, cur[:, None], SERVE_PROMPT + t)
+        cur = logits.argmax(dim=-1)
+    return torch.stack(steps, dim=1).cpu().tolist()  # one sync per batch
+
+
 def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str,
                 layers: int | None = None) -> None:
-    """The serving path at full width and depth (or cut to ``layers``):
-    ``BatchServer`` on ``arch``, seed-initialized on the card, two prefill
-    batches; ``kernel`` is the one its prefill launches once a layer
-    (``kernel_symbol`` in its CUDA name).
+    """The serving path at full width and depth (or cut to ``layers``),
+    seed-initialized on the card, two prefill batches of SERVE_BATCH;
+    ``kernel`` is the one its prefill launches once a layer
+    (``kernel_symbol`` in its CUDA name), and every batch must launch it
+    exactly once a layer.  ``BatchServer`` serves byte prompts; MusicGen
+    (codebook ids) and InternVL2 (a vision prefix), which it cannot take,
+    run ``build_prefill_step`` and ``build_decode_step`` in its greedy
+    loop (``greedy``) on ``prompt_batch`` inputs of SERVE_PROMPT tokens.
     Each step's host time to enqueue is kept beside its time to finish, and
     one more prefill and decode step run under the profiler."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import Model
     from repro_torch.runtime import BatchServer
     from repro_torch.tree import tree_leaves
@@ -1003,41 +1048,61 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
         cfg = dataclasses.replace(cfg, num_layers=layers)
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
-    server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                         max_new=SERVE_NEW, device=dev)
     times: dict[str, list[float]] = {"prefill": [], "decode": [], "prefill_enqueue": [], "decode_enqueue": []}
-    finite = []
-    prefill_step, decode_step = server.prefill, server.decode
+    finite, batch_launches = [], []
 
     def timed(fn, key):
         def run(*args, **kwargs):
             sync(dev)
+            before = wrapper.launches
             t0 = time.perf_counter()
             logits, cache = fn(*args, **kwargs)
             times[key + "_enqueue"].append((time.perf_counter() - t0) * 1e3)
             sync(dev)
             times[key].append((time.perf_counter() - t0) * 1e3)
             finite.append(bool(torch.isfinite(logits).all()))
+            if key == "prefill":
+                batch_launches.append(wrapper.launches - before)
             return logits, cache
         return run
 
-    server.prefill = timed(server.prefill, "prefill")
-    server.decode = timed(server.decode, "decode")
-    prompts = serve_prompts(SERVE_PROMPTS)
+    batches = -(-SERVE_PROMPTS // SERVE_BATCH)
+    prefill_step = build_prefill_step(cfg, ShapeConfig("serve", SERVE_PROMPT, SERVE_BATCH, "prefill"), dev).fn
+    decode_step = build_decode_step(cfg, ShapeConfig("serve_d", SERVE_PROMPT + SERVE_NEW, SERVE_BATCH, "decode"),
+                                    dev).fn
+    gen = torch.Generator().manual_seed(5)
+    by_steps = cfg.n_codebooks > 1 or bool(cfg.vis_prefix_len)
+    if by_steps:
+        inputs = [prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen) for _ in range(batches)]
+        trace_batch = inputs[0]
+        request = {"served_by": "build_prefill_step, build_decode_step in BatchServer's greedy loop",
+                   "inputs": {k: [list(v.shape), str(v.dtype)] for k, v in trace_batch.items()}}
+        prefill, decode = timed(prefill_step, "prefill"), timed(decode_step, "decode")
+        requests = batches * SERVE_BATCH
+        generate = lambda: [ids for batch in inputs for ids in greedy(prefill, decode, params, batch)]  # noqa: E731
+    else:
+        server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                             max_new=SERVE_NEW, device=dev)
+        server.prefill = timed(server.prefill, "prefill")
+        server.decode = timed(server.decode, "decode")
+        prompts = serve_prompts(SERVE_PROMPTS)
+        trace_batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)}
+        request = {"served_by": "BatchServer", "prompts": len(prompts),
+                   "prompt_bytes": [min(map(len, prompts)), max(map(len, prompts))]}
+        requests = len(prompts)
+        generate = lambda: [r.token_ids for r in server.generate(prompts)]  # noqa: E731
     wrapper.launches = 0
     t0 = time.monotonic()
-    results = server.generate(prompts)
+    results = generate()
     wall = time.monotonic() - t0
     launches = wrapper.launches
-    batches = -(-SERVE_PROMPTS // SERVE_BATCH)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=torch.Generator().manual_seed(5))
     held = {}
 
     def prefill_once():
-        held["logits"], held["cache"] = prefill_step(params, {"tokens": tokens}, seq_cap=SERVE_PROMPT + SERVE_NEW)
+        held["logits"], held["cache"] = prefill_step(params, trace_batch, seq_cap=SERVE_PROMPT + SERVE_NEW)
 
     prefill_trace = trace_step(dev, prefill_once, kernel_symbol)
-    cur = held["logits"].argmax(dim=-1, keepdim=True)
+    cur = held["logits"].argmax(dim=-1)[:, None]
     decode_trace = trace_step(dev, lambda: decode_step(params, held["cache"], cur, SERVE_PROMPT), kernel_symbol)
     param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     cache_bytes = sum(
@@ -1047,10 +1112,9 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     )
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "params": model.param_count(), "dtype": cfg.dtype, "batch": SERVE_BATCH,
-          "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW, "prompts": len(prompts),
-          "prompt_bytes": [min(map(len, prompts)), max(map(len, prompts))], "prefill_batches": batches,
-          "kernel": kernel, "launches": launches, "results": len(results),
-          "tokens_per_result": sorted({len(r.token_ids) for r in results}), "all_logits_finite": all(finite),
+          "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW, **request, "prefill_batches": batches,
+          "kernel": kernel, "launches": launches, "launches_per_batch": batch_launches, "results": len(results),
+          "tokens_per_result": sorted({len(ids) for ids in results}), "all_logits_finite": all(finite),
           "reading": "the timings and bytes below are readings, not gates",
           "prefill_ms_per_batch": times["prefill"], "prefill_enqueue_ms_per_batch": times["prefill_enqueue"],
           "decode_ms_per_token": statistics.median(times["decode"]),
@@ -1060,15 +1124,16 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
           "card_busy_share": {"prefill": prefill_trace["device_busy_ms"] / min(times["prefill"]),
                               "decode": decode_trace["device_busy_ms"] / statistics.median(times["decode"]),
                               "note": "traced busy ms over the untraced step's wall ms (prefill: the faster batch)"},
-          "generated_tokens_per_s": sum(len(r.token_ids) for r in results) / wall, "wall_s": wall,
+          "generated_tokens_per_s": sum(len(ids) for ids in results) / wall, "wall_s": wall,
           "param_bytes": param_bytes, "cache_bytes": cache_bytes})
-    if launches != cfg.num_layers * batches:
-        raise AssertionError(f"{kernel} launched {launches} times for {batches} prefill batches of {cfg.num_layers} layers")
+    if batch_launches != [cfg.num_layers] * batches:
+        raise AssertionError(f"{kernel} launched {batch_launches} times in {batches} prefill batches of "
+                             f"{cfg.num_layers} layers")
     # the profiler may drop a few of a step's ~2,800 kernel records, so the
     # exact count is the wrapper's (above); the trace must show the kernel
     if prefill_trace["kernel_launches"] < 1 or prefill_trace["kernel_ms"] <= 0:
         raise AssertionError(f"the traced prefill shows no launch of {kernel_symbol}")
-    if len(results) != len(prompts) or any(len(r.token_ids) != SERVE_NEW for r in results):
+    if len(results) != requests or any(len(ids) != SERVE_NEW for ids in results):
         raise AssertionError("a request did not get its tokens")
     if not all(finite):
         raise AssertionError("non-finite logits")
@@ -1105,6 +1170,27 @@ def packed_batch(vocab: int, b: int, s: int, seed: int) -> dict:
     return collate(rows[:b])
 
 
+def train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """``packed_batch`` for ``cfg``.  MusicGen: tokens and labels (b, s, 4),
+    the packed ids in codebook 0 beside seeded ids in the other three,
+    whose labels are the next position's ids, masked where the packed
+    labels are.  InternVL2: ``vis_embed`` (b, 256, d_model), bf16 N(0, 1),
+    with the labels over the prefix masked, as ``tests/test_arch_smoke.py``
+    does."""
+    batch = packed_batch(cfg.vocab_size, b, s, seed)
+    if cfg.n_codebooks > 1:
+        rng = np.random.default_rng(seed + 1)
+        tokens, labels = batch["tokens"][..., None], batch["labels"][..., None]
+        more = rng.integers(0, cfg.vocab_size, (b, s, cfg.n_codebooks - 1), dtype=tokens.dtype)
+        batch["tokens"] = np.concatenate([tokens, more], axis=-1)
+        batch["labels"] = np.concatenate([labels, np.where(labels >= 0, np.roll(more, -1, axis=1), -1)], axis=-1)
+    if cfg.vis_prefix_len:
+        gen = torch.Generator().manual_seed(seed + 1)
+        batch["vis_embed"] = torch.randn((b, cfg.vis_prefix_len, cfg.d_model), generator=gen).to(torch.bfloat16)
+        batch["labels"][:, :cfg.vis_prefix_len] = -1
+    return batch
+
+
 def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: list | None = None):
     """One ``build_train_step`` step of ``cfg`` on ``dev`` from ``params``:
     its metrics, the gradient leaves it applied (read from its call of
@@ -1118,7 +1204,7 @@ def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: li
     from repro_torch.optim import init_opt_state
     from repro_torch.tree import tree_leaves
 
-    rows, seq = batch["tokens"].shape
+    rows, seq = batch["tokens"].shape[:2]
     bundle = steps.build_train_step(cfg, ShapeConfig("check", seq, rows, "train"), grad_accum=1, device=dev)
     seen = []
     real_update = steps.apply_update
@@ -1161,7 +1247,8 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
     block where the config has one), on the card against the same step on
     the CPU from the same parameters (``Model.init(0)`` on the CPU, copied;
     with ``conditioned`` through ``condition_attention`` first) and one
-    seeded packed batch of ``rows`` rows of ``seq`` tokens: the loss (and the
+    seeded packed batch of ``rows`` rows of ``seq`` tokens (``train_batch``:
+    MusicGen's four codebooks, InternVL2's vision prefix): the loss (and the
     MTP loss beside it), the global gradient norm and each gradient leaf's
     largest difference over its largest |value|, in two checks.
 
@@ -1198,7 +1285,7 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
     host = Model(cfg).init(seed=0, device="cpu")
     if conditioned:
         condition_attention(cfg, host)
-    batch = packed_batch(cfg.vocab_size, rows, seq, seed=6)
+    batch = train_batch(cfg, rows, seq, seed=6)
     has_moe = moe_layers(cfg) > 0
     cpu_m, cpu_g, cpu_r = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
     routes = cpu_r.idx if has_moe else None  # the CPU bf16 step's expert choices, replayed by the other three
@@ -1438,6 +1525,14 @@ def main() -> int:
         # from the CPU's on an H100: w_uq/w_uk drawn at fan-in over the heads make attention peaked
         phase_model_check(dev, "deepseek-v3-671b", 128, layers=4, conditioned=True)
         release_card()
+        # MusicGen: MHA, 24 heads of 64 (K3 at kv groups of 1), LayerNorm and GELU, four codebooks.
+        # InternVL2: 256 vision rows, then 256 tokens; the head masks 119 padding columns of 92,672.
+        # Neither has qk_norm.  On the seed-0 weights an H100 read f32 6.99e-5 and 8.81e-5 of the
+        # largest CPU value (logits), bf16 2.31e-2 / 5.67e-2 and 0.177 / 0.125 (prefill / decode
+        # logits): wq/wk drawn at fan-in over the heads make attention peaked
+        for arch, seq in (("musicgen-medium", 256), ("internvl2-2b", 512)):
+            phase_model_check(dev, arch, seq, dtype="float32", conditioned=True)
+            phase_model_check(dev, arch, seq, conditioned=True)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
@@ -1450,10 +1545,16 @@ def main() -> int:
         release_card()
         phase_serve(dev, summary, "deepseek-v3-671b", "flash_attention", "fa_tc_bf16", layers=4)
         release_card()
+        phase_serve(dev, summary, "musicgen-medium", "flash_attention", "fa_tc_bf16")  # through the step builders
+        phase_serve(dev, summary, "internvl2-2b", "flash_attention", "fa_tc_bf16")
+        release_card()
         phase_train_check(dev, "qwen3-0.6b")
         phase_train_check(dev, "mamba2-780m")
         phase_train_check(dev, "granite-moe-1b-a400m", conditioned=True)
         phase_train_check(dev, "deepseek-v3-671b", seq=DEEPSEEK_CHECK_SEQ, rows=1)  # 2 dense layers + MTP, 3.71 B
+        # on the seed-0 weights an H100's f32 leaves read 1.20e-3 (MusicGen) and 6.85e-3 (InternVL2)
+        phase_train_check(dev, "musicgen-medium", conditioned=True)
+        phase_train_check(dev, "internvl2-2b", conditioned=True)
         release_card()
         # Qwen3's and Mamba2's steps were traced before (PERF.md §5); the time goes to DeepSeek's checks
         phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True, trace=False)

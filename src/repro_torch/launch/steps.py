@@ -39,8 +39,10 @@ def build_train_step(
 ) -> StepBundle:
     """``fn(params, opt_state, batch)`` → (params, opt_state, metrics): one
     optimizer step on ``batch`` (``tokens``, ``labels`` and optionally
-    ``positions`` and ``segment_ids``, (B, S) integers, moved to the device
-    here), with the parameters and the state updated in place and the
+    ``positions`` and ``segment_ids``, (B, S) integers; ``tokens`` and
+    ``labels`` (B, S, n_codebooks) for a multi-codebook config; and
+    ``vis_embed`` (B, vis_prefix_len, d_model) for a vision-prefix config;
+    every entry moved to the device here), with the parameters and the state updated in place and the
     metrics as 0-d tensors on the device, nothing waited for.
 
     With ``grad_accum`` (default ``cfg.grad_accum[shape.name]``, else 1)
@@ -89,20 +91,26 @@ def build_train_step(
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, device=None) -> StepBundle:
     """``fn(params, batch, seq_cap=None)`` → (logits, cache of capacity seq_cap);
-    ``batch`` holds ``tokens`` and, optionally, ``positions``."""
+    ``batch`` holds ``tokens`` (B, S), or (B, S, n_codebooks) for a
+    multi-codebook config, optionally ``positions`` (B, S), and for a
+    vision-prefix config ``vis_embed`` (B, vis_prefix_len, d_model); each
+    is moved to the device here."""
     dev = resolve_device(device, "build_prefill_step")
     model = Model(cfg)
 
     @torch.inference_mode()
     def prefill(params, batch, seq_cap=None):
-        inputs = {name: torch.as_tensor(batch[name]).to(dev) for name in ("tokens", "positions") if name in batch}
+        inputs = {name: torch.as_tensor(batch[name]).to(dev) for name in ("tokens", "positions", "vis_embed")
+                  if name in batch}
         return model.prefill(params, inputs, seq_cap)
 
     return StepBundle(model, shape, prefill)
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, device=None) -> StepBundle:
-    """``fn(params, cache, tokens (B, 1), pos)`` → (logits, the cache, written in place)."""
+    """``fn(params, cache, tokens, pos)`` → (logits, the cache, written in
+    place); tokens (B, 1), or (B, 1, n_codebooks) for a multi-codebook
+    config, whose logits are (B, n_codebooks, padded_vocab)."""
     dev = resolve_device(device, "build_decode_step")
     model = Model(cfg)
 

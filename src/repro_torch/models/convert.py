@@ -4,7 +4,9 @@ The reference keeps its parameters and optimizer state as trees of JAX
 arrays; a caller turns one into numpy arrays (``jax.tree.map(np.asarray,
 params)``) and hands it here.  The port's trees have the same nesting,
 ``{"embed", "segments": [{"blocks": [...]}], "final_norm", "head"}`` with
-the stacked leading layers dim, and ``{"step", "m", "v"}`` (or ``"m"``, or
+the stacked leading layers dim (``embed.tok`` (n_codebooks, padded_vocab,
+d_model); ``vis_proj`` and ``mtp`` beside them where the config has
+them), and ``{"step", "m", "v"}`` (or ``"m"``, or
 ``"f"``) around it for the optimizer, so ``Model`` and ``optim`` run on
 them unchanged.
 """

@@ -123,10 +123,22 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def apply_embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) integer ids (or (B, S, 1)) → (B, S, D)."""
-    if tokens.dim() == 3:
-        tokens = tokens[..., 0]
-    return p["tok"][0][tokens]
+    """tokens: (B, S) integer ids (or (B, S, 1)) → (B, S, D).  A
+    multi-codebook config (MusicGen) takes (B, S, n_codebooks) and sums the
+    per-codebook lookups in codebook order, one add at a time in the
+    table's dtype, as the reference's ``sum`` does."""
+    if cfg.n_codebooks == 1:
+        if tokens.dim() == 3:
+            tokens = tokens[..., 0]
+        return p["tok"][0][tokens]
+    if tokens.dim() != 3 or tokens.shape[-1] != cfg.n_codebooks:
+        raise ValueError(
+            f"{cfg.name}: tokens must be (B, S, {cfg.n_codebooks}), one id a codebook; got {tuple(tokens.shape)}"
+        )
+    x = p["tok"][0][tokens[..., 0]]
+    for q in range(1, cfg.n_codebooks):
+        x = x + p["tok"][q][tokens[..., q]]
+    return x
 
 
 def head_defs(cfg: ModelConfig) -> dict:
@@ -152,11 +164,13 @@ def apply_head(cfg: ModelConfig, head_p: dict, embed_p: dict, x: torch.Tensor) -
 
 def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     """logits (..., padded_vocab): the padding columns take the finite
-    -2**30 so they never win the softmax or the argmax."""
+    -2**30 so they never win the softmax or the argmax.  The fill is a
+    Python number: a tensor made from one on the card is a copy from host
+    memory, which waits for every launch queued before it."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    ok = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab_size
-    return torch.where(ok, logits, torch.tensor(-(2.0**30), dtype=logits.dtype, device=logits.device))
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab_size
+    return logits.masked_fill(pad, -(2.0**30))
 
 
 # ---------------------------------------------------------------------------

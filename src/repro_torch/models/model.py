@@ -9,9 +9,12 @@
 Dense GQA decoders, attention-free Mamba2 (SSD) stacks, and either with
 Mixture-of-Experts FFNs (Granite-MoE; Jamba's hybrid attention/SSD stack);
 DeepSeek-V3's MLA attention with its latent cache, and its multi-token
-prediction (MTP) loss in training.  The multi-codebook audio head
-(MusicGen) and the vision prefix (InternVL2) are not ported: ``Model``
-raises ``NotImplementedError`` for them (ROADMAP §1).
+prediction (MTP) loss in training; MusicGen's multi-codebook audio head
+(tokens (B, S, n_codebooks), their embeddings summed, logits
+(..., n_codebooks, padded_vocab)) and InternVL2's vision prefix
+(``batch["vis_embed"]`` (B, vis_prefix_len, d_model), the stubbed
+frontend's output, projected by ``vis_proj`` and spliced over the first
+``vis_prefix_len`` positions in training and prefill).
 """
 
 from __future__ import annotations
@@ -38,10 +41,6 @@ MTP_WEIGHT = 0.3
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.n_codebooks > 1 or cfg.vis_prefix_len:
-            raise NotImplementedError(
-                f"{cfg.name}: multi-codebook heads and vision prefixes are not ported yet (ROADMAP §1)"
-            )
         self.cfg = cfg
         self._has_attention = any(kind in ("attn", "mla") for kind, _ in cfg.layer_plan())
 
@@ -56,6 +55,8 @@ class Model:
             "final_norm": norm_defs(cfg),
             "head": head_defs(cfg),
         }
+        if cfg.vis_prefix_len:  # projects the stubbed vision frontend's output
+            d["vis_proj"] = {"w": ParamDef((cfg.d_model, cfg.d_model), ("embed", None), dtype_of(cfg))}
         if cfg.mtp:
             d["mtp"] = {
                 "proj": ParamDef((2 * cfg.d_model, cfg.d_model), (None, "embed"), dtype_of(cfg)),
@@ -77,19 +78,44 @@ class Model:
     # training
     # ------------------------------------------------------------------
     def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
-        return apply_embed(self.cfg, params["embed"], batch["tokens"])
+        """The token embeddings; with a vision prefix, positions
+        0..vis_prefix_len-1 hold ``vis_embed @ vis_proj.w`` instead (joined
+        by ``torch.cat``, so gradients reach both)."""
+        cfg = self.cfg
+        x = apply_embed(cfg, params["embed"], batch["tokens"])
+        if not cfg.vis_prefix_len:
+            return x
+        n = cfg.vis_prefix_len
+        vis = batch.get("vis_embed")
+        if vis is None:
+            raise ValueError(f"{cfg.name}: the batch needs vis_embed (B, {n}, {cfg.d_model})")
+        b, s = x.shape[:2]
+        if tuple(vis.shape) != (b, n, cfg.d_model):
+            raise ValueError(f"{cfg.name}: vis_embed must be (B, {n}, {cfg.d_model}); got {tuple(vis.shape)}")
+        if s < n:
+            raise ValueError(f"{cfg.name}: {s} positions cannot hold the vision prefix of {n}")
+        return torch.cat([vis.to(x.dtype) @ params["vis_proj"]["w"], x[:, n:]], dim=1)
 
     def _lm_loss(self, params: dict, h: torch.Tensor, batch: dict) -> torch.Tensor:
         cfg = self.cfg
-        logits = mask_padded_vocab(cfg, apply_head(cfg, params["head"], params["embed"], h))
+        logits = apply_head(cfg, params["head"], params["embed"], h)
         labels = batch["labels"]
+        if cfg.n_codebooks > 1:  # labels (B, S, n_codebooks), one a codebook
+            logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks, cfg.padded_vocab)
+            if labels.shape != logits.shape[:-1]:
+                raise ValueError(f"{cfg.name}: labels must be {tuple(logits.shape[:-1])}; got {tuple(labels.shape)}")
+            return cross_entropy(mask_padded_vocab(cfg, logits), labels, (labels >= 0).float())
+        logits = mask_padded_vocab(cfg, logits)
         if labels.dim() == 3:
             labels = labels[..., 0]
         return cross_entropy(logits, labels, (labels >= 0).float())
 
     def train_loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """batch: ``tokens`` and ``labels`` (B, S), labels negative where
-        masked; ``positions`` (default ``arange(S)``) and ``segment_ids``
+        masked (both (B, S, n_codebooks) for a multi-codebook config, the
+        loss the mean over every position and codebook); ``vis_embed``
+        (B, vis_prefix_len, d_model) for a vision-prefix config, whose labels
+        are masked over the prefix by the caller; ``positions`` (default ``arange(S)``) and ``segment_ids``
         (default zeros), which packed rows restart and number per document.
         Returns the loss (the mean next-token loss plus the MoE layers'
         summed load-balance loss, plus ``MTP_WEIGHT`` times the MTP loss
@@ -191,7 +217,11 @@ class Model:
     # serving
     # ------------------------------------------------------------------
     def prefill(self, params: dict, batch: dict, seq_cap: int | None = None) -> tuple[torch.Tensor, list]:
-        """batch["tokens"] (B, S) → (logits (B, padded_vocab), cache).
+        """batch["tokens"] (B, S) → (logits (B, padded_vocab), cache);
+        (B, S, n_codebooks) → logits (B, n_codebooks, padded_vocab) for a
+        multi-codebook config.  A vision-prefix config also takes
+        ``batch["vis_embed"]`` (B, vis_prefix_len, d_model), spliced over
+        the first positions as in training.
 
         ``batch["positions"]`` (B, S), default ``arange(S)`` in every row, are
         the positions RoPE rotates by.  Attention masks by index, which is
@@ -203,8 +233,7 @@ class Model:
         prompt's k/v (MLA: its latents) in slots 0..S-1; decode steps write
         the slots after them.  An SSD cache holds the state after the prompt."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = apply_embed(cfg, params["embed"], tokens)
+        x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
@@ -231,7 +260,9 @@ class Model:
     def decode_step(
         self, params: dict, caches: list, tokens: torch.Tensor, pos: int
     ) -> tuple[torch.Tensor, list]:
-        """tokens (B, 1) at position ``pos``, the cache slot it writes."""
+        """tokens (B, 1), or (B, 1, n_codebooks) for a multi-codebook
+        config, at position ``pos``, the cache slot it writes; the logits
+        are shaped as ``prefill``'s."""
         cfg = self.cfg
         x = apply_embed(cfg, params["embed"], tokens)
         for seg_params, seg_cache, segment in zip(params["segments"], caches, cfg.segments()):
@@ -241,5 +272,8 @@ class Model:
         return self._shape_logits(logits), caches
 
     def _shape_logits(self, logits: torch.Tensor) -> torch.Tensor:
-        return mask_padded_vocab(self.cfg, logits)
+        cfg = self.cfg
+        if cfg.n_codebooks > 1:
+            logits = logits.reshape(logits.shape[0], cfg.n_codebooks, cfg.padded_vocab)
+        return mask_padded_vocab(cfg, logits)
 

@@ -16,6 +16,12 @@ latent space), or the one-token SSD recurrence.  An
 SSD prompt is scanned in chunks of the reference's size
 (``models.ssm.scan_chunk``: ``SSDConfig.chunk`` where it divides
 ``prompt_len``, else the largest power of two that does).
+
+The server takes byte prompts, which carry one codebook and no image:
+MusicGen (several codebooks) and InternVL2 (a vision prefix) are served
+through the step builders of ``launch/steps.py``, which take their
+(B, S, n_codebooks) tokens and ``vis_embed``; ``BatchServer`` raises for
+them, as the reference's server fails on them.
 """
 
 from __future__ import annotations
@@ -51,6 +57,12 @@ class BatchServer:
         max_new: int = 16,
         device: torch.device | str | None = None,  # None = torch.device("cuda")
     ):
+        if cfg.n_codebooks > 1 or cfg.vis_prefix_len:
+            raise NotImplementedError(
+                f"{cfg.name}: BatchServer's byte prompts carry one codebook and no image embeddings, so it "
+                "cannot serve a multi-codebook or vision-prefix config (the reference's server fails on both); "
+                "drive launch.steps.build_prefill_step and build_decode_step with the model's own inputs"
+            )
         self.device = resolve_device(device, "BatchServer")
         self.cfg = cfg
         self.params = params

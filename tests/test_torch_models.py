@@ -34,8 +34,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
-from repro_torch.models import Model, params_from_reference  # noqa: E402
+from repro_torch.models import Model, params_from_reference, tree_to_numpy  # noqa: E402
 from repro_torch.models.params import ParamDef, init_params, param_count  # noqa: E402
+from repro_torch.tree import tree_items  # noqa: E402
 from torch_parity import SWAP_GAP, condition_attention, reference_routes, reference_stack  # noqa: E402,F401
 
 import route_check  # noqa: E402  (tools/, put on the path by torch_parity)
@@ -225,10 +226,25 @@ def test_init_params_draws_the_reference_scales():
     assert all(torch.equal(p[k], again[k]) for k in defs)
 
 
-@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-2b"])
-def test_blocks_of_later_slices_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(port_configs.get_smoke_config(arch))
+@pytest.mark.parametrize("arch", [ARCH, "musicgen-medium", "internvl2-2b"])
+def test_params_from_reference_round_trip(reference_stack, arch):  # noqa: F811
+    """Every leaf crosses to the port and back unchanged, in its dtype and
+    shape: MusicGen's (4, padded_vocab, d_model) codebook table and its
+    (d_model, 4 * padded_vocab) head, InternVL2's ``vis_proj``."""
+    ref_cfg, cfg = _configs(reference_stack, "bfloat16", arch)
+    ref_params = jax.tree.map(np.asarray, reference_stack.Model(ref_cfg).init(jax.random.PRNGKey(1)))
+    params = params_from_reference(ref_params, device="cpu")
+    want = {jax.tree_util.keystr(p): a for p, a in jax.tree_util.tree_flatten_with_path(ref_params)[0]}
+    got = dict(tree_items(params))
+    assert got.keys() == want.keys()
+    back = dict(tree_items(tree_to_numpy(params)))
+    for k, a in want.items():
+        assert got[k].dtype == _TORCH_DTYPE[str(a.dtype)] and tuple(got[k].shape) == a.shape, k
+        np.testing.assert_array_equal(back[k], np.asarray(a, np.float32), err_msg=k)
+    assert tuple(got["['embed']['tok']"].shape) == (cfg.n_codebooks, cfg.padded_vocab, cfg.d_model)
+    assert ("['vis_proj']['w']" in got) == bool(cfg.vis_prefix_len)
+    if cfg.vis_prefix_len:
+        assert tuple(got["['vis_proj']['w']"].shape) == (cfg.d_model, cfg.d_model)
 
 
 def test_cache_spec_matches_the_allocated_cache():
