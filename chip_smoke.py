@@ -13,12 +13,24 @@ and a copy of the same bytes), then runs
     frames, batch 128, random 224x224 crops and flips decoded on the card),
     checks every delivered batch against the same loader run on the CPU,
     and times one batch's host→device copy;
+  - the same frames from the sharded record store (``shards``): packed into
+    6 shards of 256 and read (a) by mmap, (b) over loopback HTTP through a
+    prefetch cache of about two shards, (c) projected to the image column
+    of an image + caption pack, (d) through (b)'s warm cache as a peer, (e)
+    under ``HealthMonitor.guard()`` with 1% of reads failed and the metrics
+    exporter scraped once; every image batch equal to (a)'s, which equals
+    its CPU run; (f) token documents in shards over HTTP into
+    ``build_lm_loader`` on the card (equal to the in-memory CPU run) and
+    two ``Trainer.fit`` steps of Qwen3-0.6B in 2 layers; (g) the
+    ``MPLoader`` baseline (4 spawned workers) into K2;
   - Qwen3-0.6B and Mamba2-780m at full width, cut to 2 layers, on the card
     against the same model and weights on the CPU (prefill, then 4 decode
     steps), and each so again at a prompt of 20 tokens: Qwen3's prefill
     pads it to K3's 64-row tiles (``prefill_ragged``), Mamba2's scans it in
     one chunk of 20 steps, not a multiple of K4's 16-row tiles
-    (``prefill_ragged_ssd``);
+    (``prefill_ragged_ssd``), and Qwen3 at prompts of two packed
+    documents whose positions restart, which K3 masks by position
+    (``prefill_restart``);
   - ``apply_moe`` at Granite-MoE-1B-A400M's prefill shape on the card
     against the CPU, in f32 and bf16, and under
     ``torch.cuda.set_sync_debug_mode("error")`` (``moe``);
@@ -113,6 +125,10 @@ DEEPSEEK_CHECK_SEQ = 128  # DeepSeek-V3's train_check, one row: 3.71 B parameter
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
 TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 6, 3, 2  # Qwen3's train phase
 OWN_ROUNDING = 1.5  # a bf16 gradient leaf may differ by 1.5x the CPU's own bf16 rounding of it
+SHARD_SAMPLES, SHARD_WINDOW = 256, 512  # shards phase: 6 shards of about 50 MB; the shuffle spans two
+SHARD_CACHE_BYTES = 110_000_000  # about two shards: every epoch over HTTP evicts
+LM_DOCS, LM_BATCHES = 4096, 3  # shards phase (f): token documents in 4 shards; batches held to the CPU run
+MP_WORKERS = 4  # shards phase (g): the process-pool baseline's workers
 
 
 def emit(obj: dict) -> None:
@@ -485,6 +501,389 @@ def phase_example(ds, dev: torch.device, summary: dict) -> None:
         summary["dequant_normalize"]["max_abs_err"], worst["max_abs_err"])
 
 
+class Captioned:
+    """The frames as a two-column source for a format-v2 pack: each frame's
+    encoded image, and a short caption beside it."""
+
+    schema_fields = ("image", "caption")
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    @staticmethod
+    def caption(i: int) -> bytes:
+        return b"a synthetic photograph, frame %d of the shard phase" % i
+
+    def read_fields(self, i: int, fields=None) -> dict:
+        blobs = {"image": self.frames.read_bytes(i), "caption": self.caption(i)}
+        return {f: blobs[f] for f in (fields or self.schema_fields)}
+
+
+def shard_loader(ds, device, **kw):
+    """``build_image_loader`` at ``main``'s geometry and decode over a shard
+    dataset, with the shard-aware shuffle, 2 epochs."""
+    from repro_torch.data import CheckpointableSampler, build_image_loader
+    from repro_torch.data.transfer import DeviceDecode
+
+    sampler = CheckpointableSampler(len(ds), batch_size=BATCH, seed=0, shard_sizes=ds.shard_sizes,
+                                    shard_window=SHARD_WINDOW)
+    return build_image_loader(
+        ds, batch_size=BATCH, hw=FRAME, device=device, epochs=2, sampler=sampler,
+        device_decode=DeviceDecode(MEAN, STD, out_hw=CROP, flip=True, crop=True, seed=0), **kw,
+    )
+
+
+def drain(pipe, keep, batches=None) -> list[float]:
+    """Iterate ``batches`` (default: the pipeline itself) under the pipeline's
+    auto-stop, ``keep(images)`` on each; returns each batch's arrival
+    seconds after the start, the card synchronized at the end."""
+    times, t0 = [], time.monotonic()
+    with pipe.auto_stop():
+        for batch in (pipe if batches is None else batches):
+            keep(batch["images"])
+            times.append(time.monotonic() - t0)
+    torch.cuda.synchronize()
+    return times
+
+
+def shard_row(sub: str, times: list[float], launches: int, pipe, **extra) -> dict:
+    stats = {st.name: st for st in pipe.stats()}
+    n = len(times)
+    return {"phase": "shards", "sub": sub, "batches": n, "k1_launches": launches,
+            "images_per_s": n * BATCH / times[-1], "loader_ms_per_batch": times[-1] / n * 1e3,
+            "wall_s": times[-1], "read_failed": stats["read"].num_failed,
+            "slabs_in_flight": stats["batch"].slabs_in_flight, **extra}
+
+
+def equal_batches(got: list[torch.Tensor], want: list[torch.Tensor], sub: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"shards {sub}: {len(got)} batches against {len(want)}")
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g.device != w.device or not torch.equal(g, w):
+            raise AssertionError(f"shards {sub}: batch {j} differs from (a)'s")
+
+
+def phase_shards(ds, root: pathlib.Path, dev: torch.device, summary: dict) -> None:
+    """The image path from the sharded record store, sub-phases (a)-(g)
+    (their docstrings in ``shards_*``): ``main``'s frames packed into 6
+    shards of 256 (about 50 MB each; the noise frames do not compress),
+    read by mmap, over loopback HTTP, projected from a two-column pack,
+    through a peer's warm cache and under the health monitor with injected
+    read faults, each into K1 on the card; token documents from shards
+    into ``build_lm_loader`` and ``Trainer.fit``; and the process-pool
+    baseline into K2."""
+    from repro_torch.data import ShardDataset, pack
+    from repro_torch.data.shards.testing import serve_shards
+    from repro_torch.kernels import dequant_normalize as dn
+
+    k1 = dn.dequant_normalize_augment
+    launches: dict[str, int] = {}
+    t0 = time.monotonic()
+    v1 = pack(ds, root / "shards", samples_per_shard=SHARD_SAMPLES)
+    emit({"phase": "shards", "sub": "pack", "shards": v1.num_shards, "samples": len(v1),
+          "bytes": sum(f.stat().st_size for f in (root / "shards").glob("*.rpshard")),
+          "seconds": time.monotonic() - t0})
+    v1.close()
+
+    # (a) local: mmap views decoded into pinned slabs, every batch against a CPU run
+    local = ShardDataset(root / "shards")
+    host: list[torch.Tensor] = []
+    drain(shard_loader(local, "cpu"), host.append)
+    base: list[torch.Tensor] = []
+    k1.launches = 0
+    pipe = shard_loader(local, dev)
+    times = drain(pipe, base.append)
+    launches["local"] = k1.launches
+    worst = {"max_abs_err": 0.0, "mismatches": 0}
+    for got, want in zip(base, host):
+        r = compare(got.cpu(), want)
+        worst = {"max_abs_err": max(worst["max_abs_err"], r["max_abs_err"]),
+                 "mismatches": worst["mismatches"] + r["mismatches"]}
+    clean = shard_row("local", times, launches["local"], pipe, cpu_batches=len(host),
+                      all_batches_vs_cpu_run=worst)
+    emit(clean)
+    local.close()
+    expected = 2 * (FRAMES // BATCH)
+    if len(base) != expected or len(host) != expected or worst["mismatches"]:
+        raise AssertionError(f"shards local: {len(base)} / {len(host)} batches, {worst} against the CPU run")
+    if launches["local"] != expected:
+        raise AssertionError(f"shards local: K1 launched {launches['local']} times for {expected} batches")
+    del host
+
+    with serve_shards(root / "shards") as origin:
+        b_ds = shards_http(origin, root, dev, base, launches)
+        shards_peers(origin, b_ds, root, dev, base, launches)
+        shards_guarded(origin, root, dev, launches, clean["slabs_in_flight"])
+        b_ds.close()
+    shards_projection(ds, root, dev, base, launches)
+    del base
+    summary["dequant_normalize_augment"]["launches"] += sum(launches.values())
+    summary["dequant_normalize_augment"].setdefault("launches_by_path", {}).update(
+        {f"shards {sub}": n for sub, n in launches.items()})
+    shards_lm(root, dev)
+    shards_baseline(root, dev, summary, clean["images_per_s"])
+    emit({"phase": "shards", "sub": "done", "k1_launches": launches, "seconds": time.monotonic() - t0})
+
+
+def shards_http(origin, root: pathlib.Path, dev, base: list, launches: dict):
+    """(b) the shards over loopback HTTP into a prefetch cache of about two
+    shards: every epoch misses and evicts.  Returns the open dataset, whose
+    warm cache (d) serves."""
+    from repro_torch.data import ShardDataset
+    from repro_torch.kernels import dequant_normalize as dn
+
+    ds = ShardDataset(origin.url, cache_dir=root / "cache_b", cache_bytes=SHARD_CACHE_BYTES)
+    got: list[torch.Tensor] = []
+    dn.dequant_normalize_augment.launches = 0
+    pipe = shard_loader(ds, dev)
+    times = drain(pipe, got.append)
+    launches["http"] = dn.dequant_normalize_augment.launches
+    pf = ds.prefetcher.stats()
+    half = len(times) // 2
+    emit(shard_row("http", times, launches["http"], pipe, cache_bytes=SHARD_CACHE_BYTES,
+                   cold_epoch_s=times[half - 1], warm_epoch_s=times[-1] - times[half - 1],
+                   prefetcher={key: pf[key] for key in ("hits", "misses", "evictions", "bytes_fetched",
+                                                        "index_fetches", "range_fetches", "sparse_shards")},
+                   origin_requests=origin.requests, origin_bytes_served=origin.bytes_served))
+    equal_batches(got, base, "http")
+    if launches["http"] != len(got):
+        raise AssertionError(f"shards http: K1 launched {launches['http']} times for {len(got)} batches")
+    if not pf["evictions"]:
+        raise AssertionError("shards http: a cache of about two shards evicted nothing")
+    return ds
+
+
+def shards_peers(origin, warm, root: pathlib.Path, dev, base: list, launches: dict) -> None:
+    """(d) (b)'s warm prefetcher served by a ``PeerShardServer``; a second
+    rank reads the origin with that peer in front of it."""
+    from repro_torch.data import PeerShardServer, ShardDataset
+    from repro_torch.kernels import dequant_normalize as dn
+
+    with PeerShardServer(warm.prefetcher) as peer:
+        before = origin.requests
+        ds = ShardDataset(origin.url, cache_dir=root / "cache_d", cache_bytes=SHARD_CACHE_BYTES,
+                          peers=[peer.url])
+        got: list[torch.Tensor] = []
+        dn.dequant_normalize_augment.launches = 0
+        pipe = shard_loader(ds, dev)
+        times = drain(pipe, got.append)
+        launches["peers"] = dn.dequant_normalize_augment.launches
+        pf = ds.prefetcher.stats()
+        served = peer.stats()
+        ds.close()
+    emit(shard_row("peers", times, launches["peers"], pipe,
+                   tier={key: pf.get(f"source_{key}") for key in ("peer_hits", "peer_bytes", "origin_fetches",
+                                                                    "origin_bytes", "peer_errors")},
+                   origin_requests_this_rank=origin.requests - before,
+                   peer_served={key: served[key] for key in ("requests", "misses", "served_whole",
+                                                              "served_ranges", "bytes_served")}))
+    equal_batches(got, base, "peers")
+    if launches["peers"] != len(got):
+        raise AssertionError(f"shards peers: K1 launched {launches['peers']} times for {len(got)} batches")
+    if not pf.get("source_peer_hits"):
+        raise AssertionError("shards peers: no read came from the peer")
+
+
+def shards_guarded(origin, root: pathlib.Path, dev, launches: dict, clean_slabs: int) -> None:
+    """(e) (b)'s loader under ``HealthMonitor.guard()`` (degrading by
+    ``disable_verify``), reads failed by a seeded ``FaultInjectingStage``
+    (1%: the same count every run), and a ``MetricsExporter`` scraped once
+    over loopback after the 12th batch.  The holes must show as the read
+    stage's failures, batches stay dense, and the drained loader holds as
+    many slabs as (a)'s clean one."""
+    import urllib.request
+
+    from repro_torch.core import FaultInjectingStage, HealthMonitor, MetricsExporter, disable_verify
+    from repro_torch.data import ShardDataset
+    from repro_torch.kernels import dequant_normalize as dn
+
+    ds = ShardDataset(origin.url, cache_dir=root / "cache_e", cache_bytes=SHARD_CACHE_BYTES)
+    chaos = FaultInjectingStage(ds.read_bytes, seed=23, error_rate=0.01)
+    ds.read_bytes = chaos
+    pipe = shard_loader(ds, dev)
+    exporter = MetricsExporter()
+    exporter.add_pipeline(pipe, name="images")
+    monitor = HealthMonitor(pipe, degraded_after_s=5.0, stalled_after_s=60.0,
+                            actions=[disable_verify(ds.prefetcher)])
+    shapes, scrape = set(), {}
+
+    def keep(x: torch.Tensor) -> None:
+        shapes.add((x.device.type, tuple(x.shape)))
+        if keep.n == 11:  # mid-run, after the 12th batch
+            with exporter.serve() as server:
+                scrape["text"] = urllib.request.urlopen(server.url, timeout=30).read().decode()
+        keep.n += 1
+
+    keep.n = 0
+    dn.dequant_normalize_augment.launches = 0
+    times = drain(pipe, keep, monitor.guard(tick=0.5))
+    launches["guarded"] = dn.dequant_normalize_augment.launches
+    ds.close()
+    errors = chaos.stats()["injected_errors"]
+    families = sorted({line.split()[2] for line in scrape.get("text", "").splitlines() if line.startswith("# TYPE")})
+    row = shard_row("guarded", times, launches["guarded"], pipe, injected_errors=errors,
+                    clean_slabs_in_flight=clean_slabs, degrade_actions=monitor.applied_actions(),
+                    shapes=sorted(str(sh) for sh in shapes), scrape_families=len(families),
+                    scrape_has=[f for f in families if "shard_cache" in f or f.endswith("stage_items_out_total")])
+    emit(row)
+    want_batches = (2 * FRAMES - errors) // BATCH
+    if not errors or row["read_failed"] != errors or row["batches"] != want_batches:
+        raise AssertionError(f"shards guarded: {errors} injected, {row['read_failed']} failed reads, "
+                             f"{row['batches']} batches (expected {want_batches})")
+    if shapes != {(dev.type, (BATCH, 3, *CROP))}:
+        raise AssertionError(f"shards guarded: delivered {shapes}")
+    if launches["guarded"] != row["batches"]:
+        raise AssertionError(f"shards guarded: K1 launched {launches['guarded']} times for {row['batches']} batches")
+    if row["slabs_in_flight"] != clean_slabs:
+        raise AssertionError(f"shards guarded: {row['slabs_in_flight']} slabs in flight after the drain, "
+                             f"a clean run {clean_slabs}")
+    for family in ("repro_stage_items_out_total", "repro_shard_cache_hits_total", "repro_arena_slabs_in_flight"):
+        if family not in families:
+            raise AssertionError(f"shards guarded: the scrape lacks {family}")
+
+
+def shards_projection(ds, root: pathlib.Path, dev, base: list, launches: dict) -> None:
+    """(c) the same frames packed as format v2 with an image and a caption
+    column, read over HTTP with ``fields=("image",)``.  The image column is
+    most of a shard, so the prefetcher's sparse threshold goes to 1.0 (a
+    projected fetch then always pulls column ranges) and its sparse→full
+    promotion is off (it fetches whole shards).  No caption byte may
+    cross: every shard enters the cache as a projected sparse entry, and the
+    origin serves at most the shard files less their caption columns."""
+    from repro_torch.data import ShardDataset, pack
+    from repro_torch.data.shards.testing import serve_shards
+    from repro_torch.kernels import dequant_normalize as dn
+
+    pack(Captioned(ds), root / "shards_v2", samples_per_shard=SHARD_SAMPLES, format_version=2).close()
+    captions = sum(len(Captioned.caption(i)) for i in range(len(ds)))
+    files = sum(f.stat().st_size for f in (root / "shards_v2").iterdir())
+    with serve_shards(root / "shards_v2") as origin:
+        proj = ShardDataset(origin.url, fields=("image",), cache_dir=root / "cache_c")
+        proj.prefetcher.sparse_threshold = 1.0
+        proj.prefetcher.promote_threshold = None  # a sparse→full upgrade would fetch the caption column
+        got: list[torch.Tensor] = []
+        dn.dequant_normalize_augment.launches = 0
+        pipe = shard_loader(proj, dev, fields=("image",))
+        times = drain(pipe, got.append)
+        launches["projection"] = dn.dequant_normalize_augment.launches
+        pf = proj.prefetcher.stats()
+        with origin.lock:
+            served = origin.bytes_served
+        proj.close()
+    emit(shard_row("projection", times, launches["projection"], pipe, caption_bytes=captions,
+                   files_bytes=files, origin_bytes_served=served,
+                   prefetcher={key: pf[key] for key in ("sparse_shards", "fields_requested", "bytes_fetched",
+                                                        "bytes_skipped", "range_fetches", "index_fetches")}))
+    equal_batches(got, base, "projection")
+    if launches["projection"] != len(got):
+        raise AssertionError(f"shards projection: K1 launched {launches['projection']} times for {len(got)} batches")
+    if pf["sparse_shards"] != FRAMES // SHARD_SAMPLES or served > files - captions:
+        raise AssertionError(f"shards projection: {pf['sparse_shards']} sparse shards, {served} bytes served "
+                             f"of {files} ({captions} of them captions)")
+
+
+def shards_lm(root: pathlib.Path, dev) -> None:
+    """(f) token documents packed into shards and served over HTTP into
+    ``build_lm_loader`` on the card: the first LM_BATCHES batches equal the
+    same loader's CPU run over the in-memory documents; then ``Trainer.fit``
+    takes 2 steps of Qwen3-0.6B at full width, cut to 2 layers, from the
+    same pipeline."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import CheckpointableSampler, ShardDataset, SyntheticTokenDataset, build_lm_loader, pack
+    from repro_torch.data.shards.testing import serve_shards
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=2)
+    docs = SyntheticTokenDataset(LM_DOCS, vocab=cfg.vocab_size)
+    shards = pack(docs, root / "docs", samples_per_shard=LM_DOCS // 4)
+
+    def loader(ds, device):
+        sampler = CheckpointableSampler(len(ds), batch_size=8, seed=0, shard_sizes=shards.shard_sizes,
+                                        shard_window=SHARD_WINDOW)
+        return build_lm_loader(ds, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, sampler=sampler, device=device)
+
+    def first(it) -> list[dict]:
+        return [{k: v.clone() for k, v in next(it).items()} for _ in range(LM_BATCHES)]
+
+    pipe, _ = loader(docs, "cpu")
+    with pipe.auto_stop():
+        want = first(iter(pipe))
+    with serve_shards(root / "docs") as origin, tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        ds = ShardDataset(origin.url, cache_dir=root / "cache_f")
+        pipe, sampler = loader(ds, dev)
+        with pipe.auto_stop():
+            t1 = time.monotonic()
+            got = first(iter(pipe))
+            load_s = time.monotonic() - t1
+            trainer = Trainer(cfg, ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                              tcfg=TrainerConfig(ckpt_dir=ckpt, ckpt_every=10**9, log_every=1), device=dev)
+            history = trainer.fit(pipe, steps=2, sampler=sampler)["history"]
+            health = trainer.health()
+        pf = ds.prefetcher.stats()
+        ds.close()
+    shards.close()
+    same = all(g.keys() == w.keys() and all(torch.equal(g[k].cpu(), w[k]) for k in g) for g, w in zip(got, want))
+    emit({"phase": "shards", "sub": "lm", "docs": LM_DOCS, "shards": shards.num_shards, "seq": TRAIN_SEQ,
+          "batch": TRAIN_BATCH, "batches": len(got), "equal_to_cpu_in_memory": same,
+          "devices": sorted({str(v.device) for g in got for v in g.values()}),
+          "loader_ms_per_batch": load_s / len(got) * 1e3, "tokens_per_s_loader": len(got) * TRAIN_SEQ * TRAIN_BATCH / load_s,
+          "arch": cfg.name, "layers": cfg.num_layers, "train_steps": len(history),
+          "losses": [h["loss"] for h in history], "data_wait_frac": health["data_wait_frac"],
+          "prefetcher": {key: pf[key] for key in ("hits", "misses", "bytes_fetched")},
+          "k1_launches": 0, "reading": "data_wait_frac is a reading, not a gate", "seconds": time.monotonic() - t0})
+    if not same or len(got) != LM_BATCHES or any(v.device.type != dev.type for g in got for v in g.values()):
+        raise AssertionError("shards lm: the card's batches from shards differ from the CPU run in memory")
+    if len(history) != 2 or not all(math.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"shards lm: {len(history)} steps, losses {[h['loss'] for h in history]}")
+
+
+def shards_baseline(root: pathlib.Path, dev, summary: dict, local_images_per_s: float) -> None:
+    """(g) the paper's baseline: ``MPLoader``, 4 spawned worker processes,
+    each unpickling (a)'s ``ShardDataset`` (and so importing the port and
+    torch), batches pickled back over a pipe in order; the consumer copies
+    each to the card and decodes it with ``ops.dequant_normalize`` (K2).
+    One epoch; the first batch is held to K2's plain version."""
+    from repro_torch.data import ShardDataset
+    from repro_torch.data.baselines import MPLoader
+    from repro_torch.kernels import dequant_normalize as dn
+    from repro_torch.kernels import ops
+
+    mean = torch.tensor(MEAN, device=dev)
+    std = torch.tensor(STD, device=dev)
+    ds = ShardDataset(root / "shards")
+    loader = MPLoader(ds, batch_size=BATCH, hw=FRAME, num_workers=MP_WORKERS)
+    dn.dequant_normalize.launches = 0
+    n, check, times, t0 = 0, None, [], time.monotonic()
+    for batch in loader:
+        x = torch.from_numpy(batch).to(dev)
+        y = ops.dequant_normalize(x, mean, std)
+        if check is None:
+            check = compare(y, dn.dequant_normalize_plain(x, mean, std))
+        n += 1
+        times.append(time.monotonic() - t0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dn.dequant_normalize.launches
+    ds.close()
+    emit({"phase": "shards", "sub": "baseline", "loader": "MPLoader", "workers": MP_WORKERS, "batches": n,
+          "k2_launches": launches, "startup_s": loader.startup_s, "first_batch_s": times[0] if times else None,
+          "images_per_s": n * BATCH / wall, "images_per_s_after_first": (n - 1) * BATCH / (wall - times[0]),
+          "local_images_per_s": local_images_per_s,
+          "loader_ms_per_batch": wall / n * 1e3, "wall_s": wall, "first_batch_vs_plain": check,
+          "reading": "images_per_s beside (a)'s is a reading, not a gate"})
+    if n != FRAMES // BATCH or launches != n:
+        raise AssertionError(f"shards baseline: {n} batches, K2 launched {launches} times")
+    if check["over_bar"]:
+        raise AssertionError("shards baseline: K2 over the bar on the first batch")
+    summary["dequant_normalize"]["launches"] += launches
+    summary["dequant_normalize"].setdefault("launches_by_path", {})["shards baseline"] = launches
+
+
 def within_tol(got: torch.Tensor, want: torch.Tensor, tols: dict = FA_TOL) -> dict:
     """|got - want| against ``tols[dtype]`` as atol and rtol, and bf16 ulps apart."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -530,6 +929,23 @@ def k3_tiles(sq: int, skv: int, causal: bool, block_k: int, rows: int = 64, keys
             "diagonal_share": diagonal / multiplied}
 
 
+def restart_positions(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
+    """(b, s) int32 rows of two packed prompts each, the second restarting at
+    0 after a seeded split; the last row repeats every position instead
+    (0, 0, 1, 1, ...).  The index mask gets every row wrong."""
+    rows = []
+    for _ in range(b - 1):
+        k = int(torch.randint(1, s, (1,), generator=gen))
+        rows.append(torch.cat([torch.arange(k), torch.arange(s - k)]))
+    rows.append(torch.arange(s) // 2)
+    return torch.stack(rows).to(torch.int32)
+
+
+def position_pairs(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> int:
+    """(query, key) pairs the position mask admits, summed over the batch."""
+    return int((q_pos[:, :, None] >= kv_pos[:, None, :]).sum())
+
+
 def library_attention(q, k, v, causal: bool):
     """One PyTorch call for the same function (the yardstick; never on the
     port's path).  SDPA's causal mask is top-left aligned, so it is timed
@@ -569,15 +985,28 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("mla_f32", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, f32, True, 128, 128),
         ("mla_block_k64", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 64, 64),  # no spills at 64
         ("mla_ragged_rows", 1, 16, 16, 96, 192, 192, bf16, True, 32, 64),  # sq not a multiple of 64 rows
+        # the position route (q_pos >= kv_pos) on restart positions: Qwen3's serving shape on both
+        # kernels, block_k 64, MLA's head dim, and rows past sq with keys padded at INT32_MAX
+        ("pos_main", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),
+        ("pos_f32", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, f32, True, 128, 128),
+        ("pos_block_k64", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 64, 64),
+        ("pos_mla", 2, 16, 16, 256, 256, 192, bf16, True, 64, 64),
+        ("pos_ragged_rows", 2, 4, 2, 96, 192, 128, bf16, True, 32, 64),
     ]
     ptxas = _build.ptxas("flash_attention")
     entry = summary["flash_attention"]
     for name, b, h, hkv, sq, skv, hd, dtype, causal, bq, bk in cases:
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for shape in ((b, h, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd)))
-        if name.startswith("mla"):
+        if "mla" in name:
             v[..., MLA_V_DIM:] = 0  # mla_prefill's zero padding of v
         kw = {"causal": causal, "block_q": bq, "block_k": bk}
+        if name.startswith("pos"):
+            kv_pos = restart_positions(b, skv, gen)
+            q_pos = kv_pos[:, :sq].clone()
+            if sq < skv:  # keys past the prompt padded as _causal_flash pads them
+                kv_pos[:, sq:] = 2**31 - 1
+            kw.update(q_pos=q_pos.to(dev), kv_pos=kv_pos.to(dev))
         got = fa.flash_attention(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         sync(dev)
@@ -588,13 +1017,28 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         if row["over_bar"]:
             emit(row)
             raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
-        if name.startswith("mla") and got[..., MLA_V_DIM:].any():
+        if "mla" in name and got[..., MLA_V_DIM:].any():
             raise AssertionError(f"flash_attention {name}: the zero-padded v's output columns are not zero")
-        if name in ("main", "f32", "granite", "musicgen", "mla", "mla_f32", "mla_block_k64"):
+        if name.startswith("pos"):
+            row["positions"] = "restart (two packed prompts a row, seeded split), last row repeated"
+        if name in ("main", "f32", "granite", "musicgen", "mla", "mla_f32", "mla_block_k64", "pos_main", "pos_f32"):
             row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
-            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-            ops = 4 * hd * causal_pairs(sq, skv, causal) * b * h
+            nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got, kw.get("q_pos"), kw.get("kv_pos"))
+                         if t is not None)
+            pairs = (position_pairs(kw["q_pos"].cpu(), kw["kv_pos"].cpu()) if "q_pos" in kw
+                     else causal_pairs(sq, skv, causal) * b)
+            ops = 4 * hd * pairs * h
             row.update(bound(nbytes, ops, BF16_TC_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S, card))
+        if name in ("pos_main", "pos_f32"):  # beside the index route on the same q, k, v
+            index_kw = {key: kw[key] for key in ("causal", "block_q", "block_k")}
+            row["index_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **index_kw), flush)
+            row["over_index"] = row["ms"] / row["index_ms"]
+            row["over_bound"] = row["ms"] / row["bound_ms"]
+        if name == "pos_main":
+            row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
+            entry["by_position"] = {key: row[key] for key in ("ms", "index_ms", "plain_ms", "bound_ms", "bound_by")}
+        if name == "pos_f32":
+            entry["by_position"].update(f32_ms=row["ms"], f32_index_ms=row["index_ms"])
         if name in ("main", "granite", "musicgen", "mla"):
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
             if name == "mla":  # SDPA takes v's own 128 dims; its default scale is 1/sqrt(192), as K3's
@@ -818,7 +1262,8 @@ def route_row(cfg, want: list, got: list, diffs: list | None = None) -> dict:
 
 
 def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "model_check",
-                      dtype: str | None = None, conditioned: bool = False, layers: int = 2) -> None:
+                      dtype: str | None = None, conditioned: bool = False, layers: int = 2,
+                      restart: bool = False) -> None:
     """``arch`` at full width, ``layers`` layers (2 by default, for the CPU
     run's sake), in its own dtype or ``dtype``: the port on the card
     against the same model and weights on the CPU, prefill of ``seq``
@@ -837,7 +1282,10 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     other tokens' outputs.  The card's own choices are compared with the
     CPU's and every (token, layer) that differs is printed with the CPU's
     gap between its k-th and (k+1)-th probability: a swap at a gap over
-    SWAP_GAP (bf16) or SWAP_GAP_F32 (f32) fails."""
+    SWAP_GAP (bf16) or SWAP_GAP_F32 (f32) fails.
+
+    With ``restart`` the prompts carry ``restart_positions``, which RoPE
+    rotates by and K3 masks by (its position route)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
@@ -849,6 +1297,8 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     b, s, steps = 2, seq, 4
     rng = torch.Generator(device="cpu").manual_seed(2)
     batch = prompt_batch(cfg, b, s, rng)
+    if restart:
+        batch["positions"] = restart_positions(b, s, rng)
     forced = torch.randint(0, cfg.vocab_size, (steps, *batch["tokens"][:, :1].shape), generator=rng)
     t0 = time.monotonic()
     with torch.inference_mode():
@@ -869,6 +1319,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype, "prefill_launches": launches,
            "weights": conditioned_weights(cfg) if conditioned else "seed 0",
+           **({"positions": "restart_positions: two packed prompts a row, the last row repeated"} if restart else {}),
            "params": model.param_count(), "max_rel_err_vs_cpu": worst,
            "bar": f"max |card - cpu| <= {bar} * max |cpu|", "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0}
     if moe_layers(cfg):
@@ -1513,6 +1964,7 @@ def main() -> int:
         phase_ssd(dev, summary, smi)
         phase_model_check(dev, "qwen3-0.6b", 256)
         phase_model_check(dev, "qwen3-0.6b", 20, "prefill_ragged")  # padded to 64 for K3
+        phase_model_check(dev, "qwen3-0.6b", 256, "prefill_restart", restart=True)  # K3's position route
         phase_model_check(dev, "mamba2-780m", 512)  # two chunks of 256
         phase_model_check(dev, "mamba2-780m", 20, "prefill_ragged_ssd")  # one chunk of 20 for K4
         phase_moe(dev, smi)
@@ -1539,6 +1991,7 @@ def main() -> int:
             emit({"phase": "dataset", "frames": FRAMES, "hw": list(FRAME), "seconds": time.monotonic() - t0})
             phase_main(ds, dev, summary)
             phase_example(ds, dev, summary)
+            phase_shards(ds, pathlib.Path(d), dev, summary)
         phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
         phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
         phase_serve(dev, summary, "granite-moe-1b-a400m", "flash_attention", "fa_tc_bf16")

@@ -48,6 +48,19 @@
 //     staged through shared memory for 16-byte stores.  Rows past sq are
 //     zero in Q and never stored, so sq need not be a multiple of 64.
 //
+// Position mask (both kernels): with q_pos (b, sq) and kv_pos (b, skv), int32,
+//   a key is kept iff q_pos >= kv_pos -- the reference's mask for rows that
+//   pack documents restarting at 0, repeat or reverse positions -- instead
+//   of by index.  It is a template flag (BY_POS), so the index route's code
+//   is what it was.  Every K/V tile is loaded; fa_tc_bf16 multiplies a 64-key
+//   sub-tile for a warp only where the sub-tile's smallest key position is
+//   at most the warp's largest query position (a warp reads two positions
+//   a lane and takes the minimum), and masks each score by the key's
+//   position, read from device memory (L1) beside the product.  fa_cuda_f32
+//   stages and scores every key.  A row that sees no key at all (a padded
+//   query row) is then the average over the sub-tiles its warp multiplied,
+//   not over every key as in the plain version: callers drop such rows.
+//
 // fa_cuda_f32 (f32 q, k, v): the first design, on the f32 CUDA cores (the
 //   tensor cores' TF32 cannot hold the 2e-5 f32 bar).  One block per (b,
 //   head, 8 query rows), one warp per row; keys staged 64 rows at a time
@@ -100,12 +113,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // The S tile of keys 16kk..16kk+15 (n8 blocks 2kk and 2kk+1) is, rounded
 // to bf16, the A fragment of P.V for those keys (mma_bf16.cuh's layouts).
-template <int HD, int NSUB>  // NSUB = block_k / 64
+template <int HD, int NSUB, bool BY_POS>  // NSUB = block_k / 64; BY_POS: mask by q_pos >= kv_pos
 __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
     const __nv_bfloat16* __restrict__ q,  // (b, h, sq, hd)
     const __nv_bfloat16* __restrict__ k,  // (b, hkv, skv, hd)
     const __nv_bfloat16* __restrict__ v,  // (b, hkv, skv, hd)
     __nv_bfloat16* __restrict__ o,        // (b, h, sq, hd)
+    const int* __restrict__ qp,           // (b, sq) when BY_POS
+    const int* __restrict__ kp,           // (b, skv) when BY_POS
     int h, int hkv, int sq, int skv, float sm_scale, int causal) {
   constexpr int STRIDE = HD + kPad;  // bf16 per staged row
   constexpr int TILE = kKeys * STRIDE;
@@ -132,7 +147,7 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
   const int q_offset = skv - sq;  // row i sits at key position i + q_offset
   const int block_last = q0 + q_rows - 1 + q_offset;
   const int n_sub_all = skv / kKeys;
-  const int n_sub = causal ? min(n_sub_all, block_last / kKeys + 1) : n_sub_all;
+  const int n_sub = causal && !BY_POS ? min(n_sub_all, block_last / kKeys + 1) : n_sub_all;
   const int n_steps = (n_sub + NSUB - 1) / NSUB;
   const int n_tiles = n_steps * 2 * NSUB;  // per step: its K sub-tiles, then its V sub-tiles
 
@@ -175,8 +190,17 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
   const int warp_row = q0 + warp * 16;
   const int warp_first = warp_row + q_offset;
   const int warp_last = warp_first + 15;
-  const int pos0 = warp_first + g;
-  const int pos1 = pos0 + 8;
+  int pos0 = warp_first + g;
+  int pos1 = pos0 + 8;
+  int warp_qmax = warp_last;
+  const int* kpos_b = nullptr;
+  if constexpr (BY_POS) {
+    const int* qpos_b = qp + static_cast<int64_t>(b) * sq;
+    kpos_b = kp + static_cast<int64_t>(b) * skv;
+    pos0 = warp_row + g < sq ? __ldg(qpos_b + warp_row + g) : INT32_MIN;  // rows past sq see nothing
+    pos1 = warp_row + g + 8 < sq ? __ldg(qpos_b + warp_row + g + 8) : INT32_MIN;
+    warp_qmax = __reduce_max_sync(0xffffffffu, max(pos0, pos1));
+  }
 
   uint32_t qf[kQRegs ? KSTEPS : 1][4];
   float acc[DBLK][4];
@@ -211,7 +235,13 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
       }
       const int sub = step * NSUB + j;
       const int k0 = sub * kKeys;
-      live[j] = sub < n_sub && (!causal || k0 <= warp_last);
+      if constexpr (BY_POS) {
+        int kmin = INT32_MAX;
+        if (sub < n_sub) kmin = min(__ldg(kpos_b + k0 + lane), __ldg(kpos_b + k0 + lane + 32));
+        live[j] = sub < n_sub && __reduce_min_sync(0xffffffffu, kmin) <= warp_qmax;
+      } else {
+        live[j] = sub < n_sub && (!causal || k0 <= warp_last);
+      }
       if (!live[j]) continue;
 #pragma unroll
       for (int nb = 0; nb < SBLK; ++nb) s[j][nb][0] = s[j][nb][1] = s[j][nb][2] = s[j][nb][3] = 0.f;
@@ -233,14 +263,27 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
           mma(s[j][2 * np + 1], qa, bf[2], bf[3]);
         }
       }
-      const bool diagonal = causal && k0 + kKeys - 1 > warp_first;
+      if constexpr (BY_POS) {
 #pragma unroll
-      for (int nb = 0; nb < SBLK; ++nb) {
+        for (int nb = 0; nb < SBLK; ++nb) {
+          const int2 kpos = __ldg(reinterpret_cast<const int2*>(kpos_b + k0 + nb * 8 + 2 * t));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][nb][e] * sm_scale;
-          if (diagonal && k0 + nb * 8 + 2 * t + (e % 2) > (e < 2 ? pos0 : pos1)) x = kNegInf;
-          s[j][nb][e] = x;
+          for (int e = 0; e < 4; ++e) {
+            float x = s[j][nb][e] * sm_scale;
+            if ((e % 2 ? kpos.y : kpos.x) > (e < 2 ? pos0 : pos1)) x = kNegInf;
+            s[j][nb][e] = x;
+          }
+        }
+      } else {
+        const bool diagonal = causal && k0 + kKeys - 1 > warp_first;
+#pragma unroll
+        for (int nb = 0; nb < SBLK; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[j][nb][e] * sm_scale;
+            if (diagonal && k0 + nb * 8 + 2 * t + (e % 2) > (e < 2 ? pos0 : pos1)) x = kNegInf;
+            s[j][nb][e] = x;
+          }
         }
       }
     }
@@ -342,11 +385,11 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
   }
 }
 
-template <int HD, int NSUB>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
-                   int skv, float sm_scale, int causal, cudaStream_t stream) {
+template <int HD, int NSUB, bool BY_POS>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
+                   int h, int hkv, int sq, int skv, float sm_scale, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (kRows + ring_slots(HD) * kKeys) * (HD + kPad);
-  auto kernel = fa_tc_bf16<HD, NSUB>;
+  auto kernel = fa_tc_bf16<HD, NSUB, BY_POS>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -355,28 +398,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   const dim3 grid((sq + kRows - 1) / kRows, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), h, hkv, sq, skv, sm_scale,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), qp, kp, h, hkv, sq, skv, sm_scale,
       causal);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_bk(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
-                      int skv, int block_k, float sm_scale, int causal, cudaStream_t s) {
+template <int HD, bool BY_POS>
+cudaError_t launch_bk(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
+                      int h, int hkv, int sq, int skv, int block_k, float sm_scale, int causal, cudaStream_t s) {
   switch (block_k) {
-    case 64: return launch<HD, 1>(q, k, v, o, b, h, hkv, sq, skv, sm_scale, causal, s);
-    case 128: return launch<HD, 2>(q, k, v, o, b, h, hkv, sq, skv, sm_scale, causal, s);
+    case 64: return launch<HD, 1, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, sm_scale, causal, s);
+    case 128: return launch<HD, 2, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
-                      int skv, int hd, int block_k, float sm_scale, int causal, cudaStream_t s) {
+template <bool BY_POS>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
+                      int h, int hkv, int sq, int skv, int hd, int block_k, float sm_scale, int causal,
+                      cudaStream_t s) {
   switch (hd) {
-    case 32: return launch_bk<32>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 64: return launch_bk<64>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 128: return launch_bk<128>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 192: return launch_bk<192>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 32: return launch_bk<32, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 64: return launch_bk<64, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 128: return launch_bk<128, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 192: return launch_bk<192, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -406,12 +451,14 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n, int h
   }
 }
 
-template <int NPL>  // NPL = output dims per lane = hd / 32
+template <int NPL, bool BY_POS>  // NPL = output dims per lane = hd / 32; BY_POS: mask by q_pos >= kv_pos
 __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
     const float* __restrict__ q,  // (b, h, sq, hd)
     const float* __restrict__ k,  // (b, hkv, skv, hd)
     const float* __restrict__ v,  // (b, hkv, skv, hd)
     float* __restrict__ o,        // (b, h, sq, hd)
+    const int* __restrict__ qp,   // (b, sq) when BY_POS
+    const int* __restrict__ kp,   // (b, skv) when BY_POS
     int h, int hkv, int sq, int skv, int block_k, int chunk, float sm_scale, int causal) {
   constexpr int HD = NPL * 32;
   constexpr int KV_STRIDE = HD + kPad;
@@ -430,7 +477,9 @@ __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
   const int row = q0 + warp;
   const bool live = warp < q_rows;
   const int q_offset = skv - sq;
-  const int pos = row + q_offset;  // the row's position among the keys
+  // the row's position among the keys, or its own position (BY_POS)
+  const int pos = BY_POS ? (live ? __ldg(qp + static_cast<int64_t>(b) * sq + row) : INT32_MIN) : row + q_offset;
+  const int* kpos_b = BY_POS ? kp + static_cast<int64_t>(b) * skv : nullptr;
   const int last_pos = q0 + q_rows - 1 + q_offset;
 
   const int64_t q_base = (static_cast<int64_t>(b) * h + head) * sq * HD;
@@ -443,7 +492,7 @@ __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
   float* my_s = sp + warp * block_k;
 
   const int n_tiles_all = skv / block_k;
-  const int n_tiles = causal ? min(n_tiles_all, last_pos / block_k + 1) : n_tiles_all;
+  const int n_tiles = causal && !BY_POS ? min(n_tiles_all, last_pos / block_k + 1) : n_tiles_all;
 
   float m = kNegInf, l = 0.f;
   float acc[NPL], pv[NPL];
@@ -456,7 +505,7 @@ __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
     // pass 1: scores of the tile
     float local_max = kNegInf;
     for (int c = 0; c < block_k; c += chunk) {
-      const bool needed = !causal || k_tile + c <= last_pos;  // uniform over the block
+      const bool needed = BY_POS || !causal || k_tile + c <= last_pos;  // uniform over the block
       if (needed) {
         __syncthreads();  // the previous chunk's readers are done (q staged, the first time)
         stage(kv, kb + static_cast<int64_t>(k_tile + c) * HD, chunk, HD, KV_STRIDE);
@@ -466,7 +515,7 @@ __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
       for (int j = lane; j < chunk; j += 32) {
         const int key = k_tile + c + j;
         float s = kNegInf;
-        if (!causal || key <= pos) {
+        if (BY_POS ? __ldg(kpos_b + key) <= pos : !causal || key <= pos) {
           const float* kr = kv + j * KV_STRIDE;
           float dot = 0.f;
 #pragma unroll
@@ -504,12 +553,12 @@ __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
 #pragma unroll
     for (int i = 0; i < NPL; ++i) pv[i] = 0.f;
     for (int c = 0; c < block_k; c += chunk) {
-      if (causal && k_tile + c > last_pos) break;  // uniform over the block
+      if (!BY_POS && causal && k_tile + c > last_pos) break;  // uniform over the block
       __syncthreads();
       stage(kv, vb + static_cast<int64_t>(k_tile + c) * HD, chunk, HD, KV_STRIDE);
       __syncthreads();
       if (!live) continue;
-      const int n = causal ? min(chunk, pos - (k_tile + c) + 1) : chunk;
+      const int n = causal && !BY_POS ? min(chunk, pos - (k_tile + c) + 1) : chunk;
       for (int j = 0; j < n; ++j) {
         const float p = my_s[c + j];
         const float* vr = kv + j * KV_STRIDE + lane * NPL;
@@ -529,15 +578,15 @@ __global__ void __launch_bounds__(kThreads) fa_cuda_f32(
   for (int i = 0; i < NPL; ++i) orow[i] = acc[i] / denom;
 }
 
-template <int NPL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
-                   int skv, int block_k, float sm_scale, int causal, cudaStream_t stream) {
+template <int NPL, bool BY_POS>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
+                   int h, int hkv, int sq, int skv, int block_k, float sm_scale, int causal, cudaStream_t stream) {
   const int hd = NPL * 32;
   const int chunk = block_k % kChunk == 0 ? kChunk : block_k;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kWarps) * hd + static_cast<size_t>(kWarps) * block_k +
                        static_cast<size_t>(chunk) * (hd + kPad));
-  auto kernel = fa_cuda_f32<NPL>;
+  auto kernel = fa_cuda_f32<NPL, BY_POS>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -545,19 +594,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   }
   const dim3 grid((sq + kWarps - 1) / kWarps, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                           static_cast<const float*>(v), static_cast<float*>(o), h, hkv, sq,
-                                           skv, block_k, chunk, sm_scale, causal);
+                                           static_cast<const float*>(v), static_cast<float*>(o), qp, kp, h, hkv,
+                                           sq, skv, block_k, chunk, sm_scale, causal);
   return cudaGetLastError();
 }
 
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv, int sq,
-                      int skv, int hd, int block_k, float sm_scale, int causal, cudaStream_t s) {
+template <bool BY_POS>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
+                      int h, int hkv, int sq, int skv, int hd, int block_k, float sm_scale, int causal,
+                      cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<1>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 64: return launch<2>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 128: return launch<4>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 192: return launch<6>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
-    case 256: return launch<8>(q, k, v, o, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 32: return launch<1, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 64: return launch<2, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 128: return launch<4, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 192: return launch<6, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
+    case 256: return launch<8, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, block_k, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -569,13 +620,25 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 // dtype 0 = bfloat16: fa_tc_bf16, hd 32, 64, 128 or 192, block_k 64 or 128.
 // dtype 1 = float32: fa_cuda_f32, hd 32, 64, 128, 192 or 256, any block_k.
 // q, k, v and o alike; h % hkv == 0; sq <= skv when causal; skv % block_k
-// == 0.  Returns the launch's cudaError_t (0 = launched).
-extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, int dtype, int b, int h,
-                         int hkv, int sq, int skv, int hd, int block_k, float sm_scale, int causal,
-                         void* stream) {
+// == 0.  q_pos (b, sq) and kv_pos (b, skv), int32, 8-byte aligned, both or
+// neither (null): given, the causal mask is q_pos >= kv_pos.  Returns the
+// launch's cudaError_t (0 = launched).
+extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, const void* q_pos,
+                         const void* kv_pos, int dtype, int b, int h, int hkv, int sq, int skv, int hd, int block_k,
+                         float sm_scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return tc::launch_hd(q, k, v, o, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
-  if (dtype == 1) return f32::launch_hd(q, k, v, o, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
+  const int* qp = static_cast<const int*>(q_pos);
+  const int* kp = static_cast<const int*>(kv_pos);
+  if ((qp == nullptr) != (kp == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (qp != nullptr) {
+    if (dtype == 0) return tc::launch_hd<true>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, 1, s);
+    if (dtype == 1) return f32::launch_hd<true>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, 1, s);
+  } else {
+    if (dtype == 0)
+      return tc::launch_hd<false>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
+    if (dtype == 1)
+      return f32::launch_hd<false>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,6 +22,14 @@ dtype picks the kernel (``kernel_route``): bf16 runs on the tensor cores
 DeepSeek's MLA prefill: q and k of 128 + 64 rope dims, and v (128 dims)
 zero-padded to 192 by its caller, as the kernel takes one head dim for q,
 k and v, like the reference's.
+
+With ``q_pos`` (B, Sq) and ``kv_pos`` (B, Skv), int32, the causal mask is
+by position, not by index: a key is kept iff ``q_pos >= kv_pos``, the
+reference's ``_plain_attention`` mask with every segment id 0, as its
+``Model.prefill`` passes them.  Rows whose positions restart (packed
+prompts), repeat or run backwards are then masked as the reference masks
+them.  A query row that sees no key averages over the keys its kernel
+visited (the plain version: over every key); callers drop such rows.
 """
 
 from __future__ import annotations
@@ -39,6 +47,20 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 TC_HEAD_DIMS = (32, 64, 128, 192)  # bf16: the f32 output of 16 rows stays in registers
 TC_BLOCK_KS = (64, 128)  # bf16: the softmax step is one or two 64-key tiles
 F32_HEAD_DIMS = (32, 64, 128, 192, 256)
+
+
+def _check_positions(q, k, q_pos, kv_pos, causal: bool) -> None:
+    """Both position tensors or neither; (B, Sq) and (B, Skv) int32 on q's device."""
+    if (q_pos is None) != (kv_pos is None):
+        raise ValueError("flash_attention: pass q_pos and kv_pos together")
+    if q_pos is None:
+        return
+    if not causal:
+        raise ValueError("flash_attention: q_pos and kv_pos give the causal mask; causal must be True")
+    for name, pos, want in (("q_pos", q_pos, (q.shape[0], q.shape[2])), ("kv_pos", kv_pos, (k.shape[0], k.shape[2]))):
+        if tuple(pos.shape) != want or pos.dtype != torch.int32 or pos.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be int32 {want} on {q.device}; "
+                             f"got {pos.dtype} {tuple(pos.shape)} on {pos.device}")
 
 
 def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> None:
@@ -82,16 +104,20 @@ def kernel_route(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
 def flash_attention_plain(
     q, k, v, *, causal: bool = True, sm_scale: float | None = None,
     block_q: int = 128, block_k: int = 128,
+    q_pos: torch.Tensor | None = None, kv_pos: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of ``flash_attention`` (any device): the Pallas
     body's key-tile loop over all query rows at once."""
     _check(q, k, v, causal, block_q, block_k)
+    _check_positions(q, k, q_pos, kv_pos, causal)
     b, h, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / (hd**0.5)
     qf = q.float().reshape(b, hkv, h // hkv, sq, hd)  # head h -> (h // group, h % group)
-    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    if q_pos is None:  # by index: row i of q at key position i + skv - sq
+        q_pos = (torch.arange(sq, device=q.device) + (skv - sq)).expand(b, sq)
+        kv_pos = torch.arange(skv, device=q.device).expand(b, skv)
     m = torch.full((b, hkv, h // hkv, sq), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qf)
@@ -100,8 +126,8 @@ def flash_attention_plain(
         vb = v[:, :, k0:k0 + block_k]
         s = torch.einsum("bkgqd,bksd->bkgqs", qf, kb) * sm_scale
         if causal:
-            k_pos = torch.arange(k0, k0 + block_k, device=q.device)
-            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            keep = q_pos[:, :, None] >= kv_pos[:, None, k0:k0 + block_k]  # (b, sq, block_k)
+            s = torch.where(keep[:, None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -117,7 +143,7 @@ def flash_attention_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fa_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+    lib.fa_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
     lib.fa_launch.restype = i
     return lib
 
@@ -131,25 +157,30 @@ def flash_attention(
     sm_scale: float | None = None,  # None = 1 / sqrt(hd)
     block_q: int = 128,
     block_k: int = 128,  # the softmax's key tile
+    q_pos: torch.Tensor | None = None,  # (B, Sq) int32: mask by q_pos >= kv_pos
+    kv_pos: torch.Tensor | None = None,  # (B, Skv) int32
 ) -> torch.Tensor:
     """Returns (B, H, Sq, hd) in q's dtype.  Raises ``ValueError`` where the
     reference asserts: ``H % Hkv``, causal with ``Sq > Skv``, and ``Sq`` or
-    ``Skv`` not a multiple of ``block_q`` or ``block_k``; on a CUDA device
-    also where ``kernel_route`` does."""
+    ``Skv`` not a multiple of ``block_q`` or ``block_k``; for one position
+    tensor without the other, or either of another shape, dtype or device;
+    on a CUDA device also where ``kernel_route`` does."""
     if q.device.type == "cpu":
         return flash_attention_plain(
-            q, k, v, causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k
+            q, k, v, causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k,
+            q_pos=q_pos, kv_pos=kv_pos,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: q must lie on the CPU or a CUDA device; got {q.device}")
     _check(q, k, v, causal, block_q, block_k)
+    _check_positions(q, k, q_pos, kv_pos, causal)
     b, h, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     kernel_route(q.dtype, hd, block_k)
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: batch {b} and heads {h} must each be at most 65535")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+    for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
     if sm_scale is None:
         sm_scale = 1.0 / (hd**0.5)
@@ -160,7 +191,9 @@ def flash_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(), None if kv_pos is None else kv_pos.data_ptr(),
+            _DTYPES[q.dtype],
             b, h, hkv, sq, skv, hd, block_k, sm_scale, int(causal), stream,
         )
     _build.check(lib, err, "flash_attention")

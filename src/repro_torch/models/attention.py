@@ -9,8 +9,10 @@ Three entry points for each:
     does the port.  The ``flash_attention`` kernel has no backward and no
     segment mask, so training never launches it;
   - ``attn_prefill``: causal self-attention over the prompt through the
-    hand-written ``flash_attention`` kernel; writes the layer's K/V into
-    the head of a preallocated cache;
+    hand-written ``flash_attention`` kernel, masked by position as the
+    reference's prefill masks (by index where the prompt carries no
+    positions); writes the layer's K/V into the head of a preallocated
+    cache;
   - ``attn_decode``: one new token against a preallocated cache, written
     in place, with plain masked attention over the cache's capacity.
 
@@ -171,15 +173,21 @@ def _sdpa(cfg: ModelConfig, q, k, v, q_pos, kv_pos, q_seg, kv_seg):
     )
 
 
-def _causal_flash(q, k, v):
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def _causal_flash(q, k, v, positions=None):
     """q: (B,S,K,G,hd), k/v: (B,S,K,hd) → (B,S,K·G,hd) through the kernel.
 
     Query head ``kh·G + g`` maps to kv head ``kh``, the kernel's
     ``h // group``; k and v go over as (B,K,S,hd).  Any S: q, k and v are
     padded with zeros at the end to a multiple of 64, with tile 128 where
     that divides the padded length and 64 otherwise, and the output is cut
-    back to S.  The padded keys come after every real query, so the causal
-    mask already hides them; the padded query rows are dropped."""
+    back to S; the padded query rows are dropped.  With ``positions`` (B,S)
+    the kernel keeps a key iff its position is at most the query's; the
+    padded keys take position INT32_MAX and the padded queries INT32_MIN,
+    so no real query sees a padded key.  Without, it masks by index, and
+    the padded keys come after every real query."""
     b, s, kh, g, hd = q.shape
     pad = -s % FLASH_PAD
     blk = 128 if (s + pad) % 128 == 0 else 64
@@ -189,8 +197,21 @@ def _causal_flash(q, k, v):
     if pad:
         qh, kt, vt = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (qh, kt, vt))
     qh, kt, vt = qh.contiguous(), kt.contiguous(), vt.contiguous()
-    o = ops.flash_attention(qh, kt, vt, causal=True, block_q=blk, block_k=blk)
+    q_pos = kv_pos = None
+    if positions is not None:
+        pos = positions.to(torch.int32)
+        q_pos, kv_pos = (torch.cat([pos, pos.new_full((b, pad), fill)], dim=1).contiguous()
+                         for fill in (INT32_MIN, INT32_MAX))
+    o = ops.flash_attention(qh, kt, vt, causal=True, block_q=blk, block_k=blk, q_pos=q_pos, kv_pos=kv_pos)
     return o[:, :, :s].transpose(1, 2)
+
+
+def _prompt_positions(x: torch.Tensor, positions):
+    """RoPE's positions for a prompt x (B,S,D): ``positions``, or
+    ``arange(S)`` in every row when the prompt carries none."""
+    if positions is None:
+        return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    return positions
 
 
 # ---------------------------------------------------------------------------
@@ -237,14 +258,15 @@ def attn_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
     """Causal attention over the prompt x (B,S,D) at ``positions`` (B,S),
-    which RoPE reads; the kernel masks by index, so each row's positions
-    must strictly increase (``Model.prefill`` checks).  Writes the layer's
-    k and v into ``cache["k"|"v"][:, :S]`` (B,S_cap,K,hd)."""
-    q, k, v = _qkv(cfg, p, x, positions)
+    which RoPE reads and the kernel masks by (a key is seen from positions
+    at or after its own, as in the reference); ``None`` means ``arange(S)``
+    in every row, masked by index.  Writes the layer's k and v into
+    ``cache["k"|"v"][:, :S]`` (B,S_cap,K,hd)."""
+    q, k, v = _qkv(cfg, p, x, _prompt_positions(x, positions))
     s = x.shape[1]
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
-    o = _causal_flash(_group(q, cfg.num_kv_heads), k, v)
+    o = _causal_flash(_group(q, cfg.num_kv_heads), k, v, positions)
     return _out(o, p["wo"])
 
 
@@ -310,17 +332,18 @@ def mla_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
 
 
 def mla_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
-    """Causal MLA over the prompt x (B,S,D) in the kernel (masked by index,
-    as ``attn_prefill``): q and k of nope + rope dims, v zero-padded to that
-    width, whose extra output columns are then zero and cut off; the scale
-    is the kernel's default 1/sqrt(nope + rope), the reference's.  Writes
-    the latents into ``cache["ckv"|"k_rope"][:, :S]``."""
-    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, x, positions)
+    """Causal MLA over the prompt x (B,S,D) in the kernel (masked by
+    ``positions`` or by index, as ``attn_prefill``): q and k of nope + rope
+    dims, v zero-padded to that width, whose extra output columns are then
+    zero and cut off; the scale is the kernel's default 1/sqrt(nope +
+    rope), the reference's.  Writes the latents into
+    ``cache["ckv"|"k_rope"][:, :S]``."""
+    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, x, _prompt_positions(x, positions))
     s = x.shape[1]
     cache["ckv"][:, :s] = ckv
     cache["k_rope"][:, :s] = k_rope
     vd = v.shape[-1]
-    o = _causal_flash(q[:, :, :, None, :], k, torch.nn.functional.pad(v, (0, q.shape[-1] - vd)))
+    o = _causal_flash(q[:, :, :, None, :], k, torch.nn.functional.pad(v, (0, q.shape[-1] - vd)), positions)
     return _out(o[..., :vd], p["wo"])
 
 

@@ -42,7 +42,6 @@ MTP_WEIGHT = 0.3
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self._has_attention = any(kind in ("attn", "mla") for kind, _ in cfg.layer_plan())
 
     # ------------------------------------------------------------------
     # parameters
@@ -224,10 +223,11 @@ class Model:
         the first positions as in training.
 
         ``batch["positions"]`` (B, S), default ``arange(S)`` in every row, are
-        the positions RoPE rotates by.  Attention masks by index, which is
-        the reference's position mask only where each row's positions
-        strictly increase; for a model with attention, other positions raise
-        ``ValueError``.
+        the positions RoPE rotates by and attention masks by, as in the
+        reference: a query sees the keys at positions up to its own, so rows
+        that restart (packed prompts), repeat or reverse their positions are
+        served.  A prompt without positions is masked by index, which is the
+        same mask.
 
         An attention cache has capacity ``seq_cap`` (default S) and holds the
         prompt's k/v (MLA: its latents) in slots 0..S-1; decode steps write
@@ -235,27 +235,17 @@ class Model:
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(s, device=x.device).expand(b, s)
-        else:
-            positions = self._check_positions(torch.as_tensor(positions, device=x.device), b, s)
+        positions = batch.get("positions")  # None: arange(S) in every row, masked by index
+        if positions is not None:
+            positions = torch.as_tensor(positions, device=x.device)
+            if tuple(positions.shape) != (b, s):
+                raise ValueError(f"positions must be (B, S) = {(b, s)}; got {tuple(positions.shape)}")
         caches = self.new_cache(b, s if seq_cap is None else seq_cap, x.device)
         for seg_params, seg_cache, segment in zip(params["segments"], caches, cfg.segments()):
             x = tf.segment_prefill(cfg, segment, seg_params, seg_cache, x, positions)
         h = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
         logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
         return self._shape_logits(logits), caches
-
-    def _check_positions(self, positions: torch.Tensor, b: int, s: int) -> torch.Tensor:
-        if tuple(positions.shape) != (b, s):
-            raise ValueError(f"positions must be (B, S) = {(b, s)}; got {tuple(positions.shape)}")
-        if self._has_attention and s > 1 and not bool((positions[:, 1:] > positions[:, :-1]).all()):
-            raise ValueError(
-                "prefill masks attention by index, which equals the position mask only where "
-                "each row's positions strictly increase; got positions that do not"
-            )
-        return positions
 
     def decode_step(
         self, params: dict, caches: list, tokens: torch.Tensor, pos: int

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from torch_parity import odd_positions, reference_stack  # noqa: E402,F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -156,3 +157,49 @@ def test_a_tensor_on_neither_cpu_nor_cuda_raises():
     q = torch.empty((1, 2, 8, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q, q, q, block_q=8, block_k=8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_position_mask_matches_the_reference_prefill_mask(reference_stack, dtype):  # noqa: F811
+    """With q_pos and kv_pos the plain version masks as the reference's
+    ``_plain_attention`` does in its prefill (every segment id 0): rows that
+    restart, repeat and reverse their positions, GQA 2:1, over 3 key tiles."""
+    from repro.models.attention import _plain_attention
+
+    b, h, hkv, s, hd = 3, 4, 2, 192, 32
+    q, k, v = _qkv(b, h, hkv, s, s, hd, seed=2)
+    pos = odd_positions(s)
+    seg = np.zeros_like(pos)
+    as_ref = [jnp.asarray(a, dtype=dtype) for a in (q, k, v)]
+    want = _plain_attention(  # (B,Sq,K,G,hd) and (B,Skv,K,hd)
+        as_ref[0].reshape(b, hkv, h // hkv, s, hd).transpose(0, 3, 1, 2, 4), as_ref[1].transpose(0, 2, 1, 3),
+        as_ref[2].transpose(0, 2, 1, 3), jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(seg), jnp.asarray(seg),
+        hd**-0.5,
+    )
+    want = np.asarray(want, np.float32).transpose(0, 2, 3, 1, 4).reshape(b, h, s, hd)
+    t = torch.from_numpy(pos)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+                              block_q=64, block_k=64, q_pos=t, kv_pos=t)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype], rtol=TOL[dtype])
+    by_index = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), block_q=64, block_k=64)
+    assert not torch.allclose(by_index, got.float(), atol=1e-2)
+
+
+def test_increasing_positions_give_the_index_mask_bit_for_bit():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 4, 2, 128, 128, 32, seed=3))
+    pos = torch.arange(128, dtype=torch.int32).expand(2, 128).contiguous()
+    by_pos = ops.flash_attention(q, k, v, block_q=64, block_k=64, q_pos=pos, kv_pos=pos)
+    assert torch.equal(by_pos, ops.flash_attention(q, k, v, block_q=64, block_k=64))
+
+
+def test_position_arguments_are_checked():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 64, 64, 32))
+    pos = torch.arange(64, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="together"):
+        ops.flash_attention(q, k, v, block_q=64, block_k=64, q_pos=pos)
+    with pytest.raises(ValueError, match="causal must be True"):
+        ops.flash_attention(q, k, v, causal=False, block_q=64, block_k=64, q_pos=pos, kv_pos=pos)
+    with pytest.raises(ValueError, match="int32"):
+        ops.flash_attention(q, k, v, block_q=64, block_k=64, q_pos=pos.long(), kv_pos=pos.long())
+    with pytest.raises(ValueError, match="kv_pos must be int32"):
+        ops.flash_attention(q, k, v, block_q=64, block_k=64, q_pos=pos, kv_pos=pos[:, :32])

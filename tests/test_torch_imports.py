@@ -46,7 +46,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("repro_torch.data.loader", "repro_torch.optim.optimizer", "repro_torch.ckpt.checkpoint",
-                   "repro_torch.runtime.trainer", "repro_torch.launch.train"):
+                   "repro_torch.runtime.trainer", "repro_torch.launch.train", "repro_torch.data.shards.peer",
+                   "repro_torch.data.shards.__main__", "repro_torch.data.baselines", "repro_torch.core.health"):
         assert module in loaded
     assert [m for m in loaded if _is_reference(m) or m.split(".")[0] == "jax"] == []
 
@@ -71,7 +72,14 @@ def test_no_source_names_jax_or_the_reference_in_an_import(path):
 COPIED = [
     "core/_compat.py", "core/errors.py", "core/trace.py", "core/stats.py",
     "core/queues.py", "core/engine.py", "core/pipeline.py", "core/builder.py",
+    "core/metrics.py", "core/health.py", "core/chaos.py", "core/autotune.py",
     "data/codec.py", "data/dataset.py", "data/packing.py", "data/sampler.py", "data/tokenizer.py",
+    "data/baselines.py",
+    # data/shards/testing.py is not a copy: its origin fixture reads only the
+    # requested byte range, where the reference's reads the whole shard for
+    # each range request (tests/test_torch_shards.py holds their answers equal)
+    *sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "data" / "shards").glob("*.py")
+            if p.name != "testing.py"),
     *sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py")),
 ]
 

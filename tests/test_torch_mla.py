@@ -31,7 +31,7 @@ from repro_torch.models import Model, attention, params_from_reference  # noqa: 
 from repro_torch.models.params import tree_map_defs  # noqa: E402
 from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.tree import tree_items  # noqa: E402
-from torch_parity import assert_bf16_within_ulp, reference_stack  # noqa: E402,F401
+from torch_parity import assert_bf16_within_ulp, prefill_at_positions, reference_stack  # noqa: E402,F401
 
 ARCH = "deepseek-v3-671b"
 B, S, CAP = 2, 24, 28
@@ -292,13 +292,15 @@ def test_a_deepseek_checkpoint_crosses_both_ways(reference_stack, tmp_path):  # 
     assert bits(jax.tree.map(np.asarray, back["opt_state"])) == bits(state_np)
 
 
-def test_mla_prefill_raises_on_positions_that_do_not_strictly_increase():
-    """The kernel masks MLA by index too, so the positions check applies."""
-    model = Model(_cfg("float32"))
-    params = model.init(0, "cpu")
-    tokens = torch.full((1, S), 3, dtype=torch.int64)
-    restart = torch.cat([torch.arange(S // 2), torch.arange(S // 2)])[None]
-    with pytest.raises(ValueError, match="strictly increase"):
-        model.prefill(params, {"tokens": tokens, "positions": restart})
-    logits, _ = model.prefill(params, {"tokens": tokens, "positions": 2 * torch.arange(S)[None]})
-    assert torch.isfinite(logits).all()
+def test_mla_prefill_raises_on_positions_that_do_not_strictly_increase(reference_stack, monkeypatch):  # noqa: F811
+    """MLA's prefill masks by position too: at positions that restart,
+    repeat or reverse, DeepSeek's smoke model (MLA with a dense layer, then
+    MoE layers replaying the reference's expert choices) gives the
+    reference's logits and latent cache in f32."""
+    got, want = prefill_at_positions(reference_stack, monkeypatch, ARCH)
+    _close(got[0], want[0], "float32", "prefill logits")
+    for seg, want_seg in zip(got[1], want[1]):
+        for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+            assert blk.keys() == want_blk.keys() == {"ckv", "k_rope"}
+            for name in blk:
+                _close(blk[name], want_blk[name], "float32", f"prefill cache {name}")

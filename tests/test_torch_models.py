@@ -37,7 +37,9 @@ from repro_torch.kernels import ssd_scan as ks  # noqa: E402
 from repro_torch.models import Model, params_from_reference, tree_to_numpy  # noqa: E402
 from repro_torch.models.params import ParamDef, init_params, param_count  # noqa: E402
 from repro_torch.tree import tree_items  # noqa: E402
-from torch_parity import SWAP_GAP, condition_attention, reference_routes, reference_stack  # noqa: E402,F401
+from torch_parity import (  # noqa: E402,F401
+    SWAP_GAP, condition_attention, prefill_at_positions, reference_routes, reference_stack,
+)
 
 import route_check  # noqa: E402  (tools/, put on the path by torch_parity)
 
@@ -333,13 +335,23 @@ def test_the_prefill_step_passes_positions_to_the_model():
     assert not torch.allclose(got, default, atol=1e-3)
 
 
-def test_positions_that_do_not_strictly_increase_raise():
+def test_positions_that_do_not_strictly_increase_raise(reference_stack, monkeypatch):  # noqa: F811
+    """Positions that restart, repeat or reverse are served as the reference
+    serves them: the kernel masks by position, and the prefill's logits and
+    k/v cache match the reference's in f32.  Positions of another shape
+    than the tokens' still raise, and an SSD stack, which reads no
+    positions, takes any."""
+    got, want = prefill_at_positions(reference_stack, monkeypatch, ARCH)
+    _close(got[0], want[0], "float32", "prefill logits")
+    for seg, want_seg in zip(got[1], want[1]):
+        for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+            assert blk.keys() == want_blk.keys() == {"k", "v"}
+            for name in blk:
+                _close(blk[name], want_blk[name], "float32", f"prefill cache {name}")
     model = Model(port_configs.get_smoke_config(ARCH))
     params = model.init(0, "cpu")
     tokens = torch.zeros((1, 24), dtype=torch.int64) + 3
     restart = torch.cat([torch.arange(12), torch.arange(12)])[None]  # two packed documents
-    with pytest.raises(ValueError, match="strictly increase"):
-        model.prefill(params, {"tokens": tokens, "positions": restart})
     with pytest.raises(ValueError, match=r"\(B, S\)"):
         model.prefill(params, {"tokens": tokens, "positions": torch.arange(12)[None]})
     ssd = Model(port_configs.get_smoke_config("mamba2-780m"))  # no attention: positions are not read

@@ -187,3 +187,50 @@ def reference_routes(monkeypatch):
     yield log
     jax.effects_barrier()
     monkeypatch.setattr(ref_moe, "apply_moe", real)
+
+
+# ---------------------------------------------------------------------------
+# prefill at positions that restart, repeat or reverse
+# ---------------------------------------------------------------------------
+
+
+def odd_positions(s: int) -> np.ndarray:
+    """(3, s) int32 rows the kernel's index mask would get wrong: two packed
+    prompts that restart at 0, every position twice, and reversed."""
+    half = s // 2
+    return np.stack([
+        np.concatenate([np.arange(half), np.arange(s - half)]),
+        np.arange(s) // 2,
+        np.arange(s)[::-1],
+    ]).astype(np.int32)
+
+
+def prefill_at_positions(ref, monkeypatch, arch: str, seed: int = 0):
+    """``arch``'s smoke config in f32, the reference's seed-``seed`` weights
+    in both packages, one prefill of three seeded prompts at
+    ``odd_positions``: ``(port, reference)``, each ``(logits, cache)`` as
+    numpy.  A MoE config replays the reference's expert choices (so a
+    near-tie broken the other way cannot move other tokens)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import route_check
+    import torch
+
+    from repro_torch import configs as port_configs
+    from repro_torch.models import Model, params_from_reference
+
+    ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
+    ref_model = ref.Model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(seed))
+    params = params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
+    positions = odd_positions(24)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, positions.shape, dtype=np.int32)
+    with reference_routes(monkeypatch) as routes:
+        want = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens), "positions": jnp.asarray(positions)})
+        want = jax.tree.map(np.asarray, want)
+    with route_check.RouteRecorder(replay=routes.idx if cfg.moe else None):
+        got = Model(cfg).prefill(params, {"tokens": torch.from_numpy(tokens), "positions": torch.from_numpy(positions)})
+    return jax.tree.map(lambda t: t.numpy(), got), want
