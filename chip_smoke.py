@@ -63,12 +63,22 @@ and a copy of the same bytes), then runs
     with TF32 off and in bf16 (``train_check``; Granite's aux loss and
     routes, DeepSeek's MTP loss too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
-    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 6 steps,
-    with a checkpoint at step 3 that a fresh ``Trainer.from_checkpoint``
+    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 3 steps,
+    with a checkpoint at step 2 that a fresh ``Trainer.from_checkpoint``
     restores bit for bit, Mamba2-780m for 2 steps, and Granite-MoE-1B-A400M
     for 2 steps (its aux loss beside the LM loss).  Training launches
     none of the four kernels: the reference trains through its plain
-    attention and SSD scan, which the port repeats under autograd.
+    attention and SSD scan, which the port repeats under autograd;
+  - the torch twins of the reference's four examples (``examples``, from
+    ``examples_torch/``): (a) ``quickstart`` on the card, every batch equal
+    to its CPU run; (b) every section of ``imagenet_pipeline``, each K1 and
+    K2 output held against its plain version and its ``kernels/ref.py``
+    oracle; (c) ``serve_llm`` at its smoke config, then Yi-6B and OLMo-1B
+    checked in 2 layers against the CPU (f32 and bf16) and served at full
+    width and depth through its ``serve``, each batch's ids equal to the
+    step builders' greedy loop; (d) ``train_lm`` at its defaults, then
+    again on the same directory, resuming at the saved step; (e) K3 and K4
+    on both routes against their ``ref.py`` oracles.
 Each phase prints one JSON line.  The last three lines are the kernel
 summary, the card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": ...}``.
@@ -79,10 +89,14 @@ any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -123,12 +137,20 @@ MLA_V_DIM = 128  # DeepSeek-V3's v head dim, padded to q's 192 for K3
 CHECK_SEQ, CHECK_BATCH = 512, 2  # train_check: one step, card against CPU, 2 layers
 DEEPSEEK_CHECK_SEQ = 128  # DeepSeek-V3's train_check, one row: 3.71 B parameters, two steps on the CPU
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 6, 3, 2  # Qwen3's train phase
+# Qwen3's train phase, cut from 6 steps, a checkpoint at 3 and 2 resumed steps for the time limit
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 3, 2, 1
+TRAIN_LM_RESUMED_STEPS = 40  # examples phase: train_lm's second run, two of its logged steps
 OWN_ROUNDING = 1.5  # a bf16 gradient leaf may differ by 1.5x the CPU's own bf16 rounding of it
 SHARD_SAMPLES, SHARD_WINDOW = 256, 512  # shards phase: 6 shards of about 50 MB; the shuffle spans two
 SHARD_CACHE_BYTES = 110_000_000  # about two shards: every epoch over HTTP evicts
 LM_DOCS, LM_BATCHES = 4096, 3  # shards phase (f): token documents in 4 shards; batches held to the CPU run
 MP_WORKERS = 4  # shards phase (g): the process-pool baseline's workers
+CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check prompt
+# Yi-6B and OLMo-1B have no qk_norm: on the seed-0 weights an H100 read Yi f32 1.52e-4 / 3.90e-4 and
+# bf16 8.7e-3 / 0.127 (prefill / decode logits), OLMo bf16 5.95e-2 / 0.225, over their bars, and OLMo f32
+# 4.8e-5 / 7.4e-5, within; the checks over the bar run on condition_attention's weights
+CONDITIONED = {("yi-6b", "float32"): True, ("yi-6b", "bfloat16"): True,
+               ("olmo-1b", "float32"): False, ("olmo-1b", "bfloat16"): True}
 
 
 def emit(obj: dict) -> None:
@@ -751,38 +773,92 @@ def shards_projection(ds, root: pathlib.Path, dev, base: list, launches: dict) -
     most of a shard, so the prefetcher's sparse threshold goes to 1.0 (a
     projected fetch then always pulls column ranges) and its sparse→full
     promotion is off (it fetches whole shards).  No caption byte may
-    cross: every shard enters the cache as a projected sparse entry, and the
-    origin serves at most the shard files less their caption columns."""
-    from repro_torch.data import ShardDataset, pack
+    cross: every shard enters the cache as a projected sparse entry, no
+    range the dataset fetched touches a caption cell, and the origin serves
+    at most the shard files less their caption columns, plus the image
+    bytes fetched twice: a demand read that races the prefetch of the same
+    sample fetches it again and keeps one copy
+    (``SparseShardReader._read_range``).  ``HttpShardSource`` logs every
+    fetch while the phase runs, and the log's bytes must be the origin's."""
+    from repro_torch.data import HttpShardSource, ShardDataset, pack
     from repro_torch.data.shards.testing import serve_shards
     from repro_torch.kernels import dequant_normalize as dn
 
     pack(Captioned(ds), root / "shards_v2", samples_per_shard=SHARD_SAMPLES, format_version=2).close()
     captions = sum(len(Captioned.caption(i)) for i in range(len(ds)))
     files = sum(f.stat().st_size for f in (root / "shards_v2").iterdir())
-    with serve_shards(root / "shards_v2") as origin:
-        proj = ShardDataset(origin.url, fields=("image",), cache_dir=root / "cache_c")
-        proj.prefetcher.sparse_threshold = 1.0
-        proj.prefetcher.promote_threshold = None  # a sparse→full upgrade would fetch the caption column
-        got: list[torch.Tensor] = []
-        dn.dequant_normalize_augment.launches = 0
-        pipe = shard_loader(proj, dev, fields=("image",))
-        times = drain(pipe, got.append)
-        launches["projection"] = dn.dequant_normalize_augment.launches
-        pf = proj.prefetcher.stats()
-        with origin.lock:
-            served = origin.bytes_served
-        proj.close()
+    fetched: list[tuple[str, int, int]] = []  # (file, start, length) of every HTTP fetch, the manifest's too
+    fetch_range, fetch_whole = HttpShardSource.fetch_range, HttpShardSource.fetch
+
+    def logged_range(self, name, start, length):
+        data = fetch_range(self, name, start, length)
+        fetched.append((name, start, len(data)))
+        return data
+
+    def logged_whole(self, name):
+        data = fetch_whole(self, name)
+        fetched.append((name, 0, len(data)))
+        return data
+
+    HttpShardSource.fetch_range, HttpShardSource.fetch = logged_range, logged_whole
+    try:
+        with serve_shards(root / "shards_v2") as origin:
+            proj = ShardDataset(origin.url, fields=("image",), cache_dir=root / "cache_c")
+            proj.prefetcher.sparse_threshold = 1.0
+            proj.prefetcher.promote_threshold = None  # a sparse→full upgrade would fetch the caption column
+            got: list[torch.Tensor] = []
+            dn.dequant_normalize_augment.launches = 0
+            pipe = shard_loader(proj, dev, fields=("image",))
+            times = drain(pipe, got.append)
+            launches["projection"] = dn.dequant_normalize_augment.launches
+            pf = proj.prefetcher.stats()
+            with origin.lock:
+                served = origin.bytes_served
+            proj.close()
+    finally:
+        HttpShardSource.fetch_range, HttpShardSource.fetch = fetch_range, fetch_whole
+    wire = wire_bytes(fetched, {path.name: caption_cells(path) for path in (root / "shards_v2").glob("*.rpshard")})
     emit(shard_row("projection", times, launches["projection"], pipe, caption_bytes=captions,
-                   files_bytes=files, origin_bytes_served=served,
+                   files_bytes=files, origin_bytes_served=served, fetched=wire,
                    prefetcher={key: pf[key] for key in ("sparse_shards", "fields_requested", "bytes_fetched",
                                                         "bytes_skipped", "range_fetches", "index_fetches")}))
     equal_batches(got, base, "projection")
     if launches["projection"] != len(got):
         raise AssertionError(f"shards projection: K1 launched {launches['projection']} times for {len(got)} batches")
-    if pf["sparse_shards"] != FRAMES // SHARD_SAMPLES or served > files - captions:
+    if (pf["sparse_shards"] != FRAMES // SHARD_SAMPLES or wire["bytes"] != served or wire["caption_bytes"]
+            or served - wire["fetched_twice"] > files - captions):
         raise AssertionError(f"shards projection: {pf['sparse_shards']} sparse shards, {served} bytes served "
-                             f"of {files} ({captions} of them captions)")
+                             f"of {files} ({captions} of them captions); fetched {wire}")
+
+
+def caption_cells(path: pathlib.Path) -> list[tuple[int, int]]:
+    """(start, end) file offsets of every caption cell of a v2 shard file."""
+    from repro_torch.data.shards.format import open_shard_reader
+
+    reader = open_shard_reader(path)
+    try:
+        cells = [reader.index.locate("caption", i)[:2] for i in range(reader.index.n_samples)]
+    finally:
+        reader.close()
+    return [(off, off + length) for off, length in cells]
+
+
+def wire_bytes(fetched: list[tuple[str, int, int]], captions: dict) -> dict:
+    """What a log of (shard, start, length) fetches moved: its bytes, the
+    bytes fetched more than once, and the caption bytes among them
+    (``captions``: each shard's caption cells)."""
+    out = {"fetches": len(fetched), "bytes": sum(n for *_, n in fetched), "fetched_twice": 0, "caption_bytes": 0}
+    for shard in {name for name, *_ in fetched}:
+        spans = sorted((start, start + n) for name, start, n in fetched if name == shard and n)
+        merged: list[list[int]] = []
+        for a, b in spans:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        out["fetched_twice"] += sum(b - a for a, b in spans) - sum(b - a for a, b in merged)
+        out["caption_bytes"] += sum(max(0, min(b, d) - max(a, c)) for a, b in merged for c, d in captions.get(shard, ()))
+    return out
 
 
 def shards_lm(root: pathlib.Path, dev) -> None:
@@ -979,6 +1055,8 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("granite", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 64, bf16, True, 128, 128),  # Granite-MoE's prefill
         ("musicgen", 8, 24, 24, SERVE_PROMPT, SERVE_PROMPT, 64, bf16, True, 128, 128),  # MusicGen's: MHA, groups of 1
         ("jamba", 2, 64, 8, 128, 128, 128, bf16, True, 128, 128),  # Jamba's model_check prefill
+        ("yi", 8, 32, 4, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),  # Yi-6B's prefill: kv groups of 8
+        ("olmo", 8, 16, 16, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),  # OLMo-1B's: MHA
         # DeepSeek-V3's MLA prefill: 128 heads as kv groups of 1, q and k of
         # 128 + 64 rope dims, v of 128 zero-padded to 192
         ("mla", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 128, 128),
@@ -1021,7 +1099,8 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
             raise AssertionError(f"flash_attention {name}: the zero-padded v's output columns are not zero")
         if name.startswith("pos"):
             row["positions"] = "restart (two packed prompts a row, seeded split), last row repeated"
-        if name in ("main", "f32", "granite", "musicgen", "mla", "mla_f32", "mla_block_k64", "pos_main", "pos_f32"):
+        if name in ("main", "f32", "granite", "musicgen", "yi", "olmo", "mla", "mla_f32", "mla_block_k64", "pos_main",
+                    "pos_f32"):
             row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got, kw.get("q_pos"), kw.get("kv_pos"))
                          if t is not None)
@@ -1036,10 +1115,16 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
             row["over_bound"] = row["ms"] / row["bound_ms"]
         if name == "pos_main":
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
-            entry["by_position"] = {key: row[key] for key in ("ms", "index_ms", "plain_ms", "bound_ms", "bound_by")}
+            # SDPA takes the position mask as a boolean (B, 1, Sq, Skv) tensor, built outside the timing
+            keep = (kw["q_pos"][:, :, None] >= kw["kv_pos"][:, None, :])[:, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_ms"] = time_ms(lambda: sdpa(q, k, v, attn_mask=keep, enable_gqa=True), flush)
+            row["library"] = "scaled_dot_product_attention(attn_mask=q_pos >= kv_pos as bool (8,1,512,512), enable_gqa=True)"
+            entry["by_position"] = {key: row[key] for key in ("ms", "index_ms", "plain_ms", "library_ms", "bound_ms",
+                                                              "bound_by")}
         if name == "pos_f32":
             entry["by_position"].update(f32_ms=row["ms"], f32_index_ms=row["index_ms"])
-        if name in ("main", "granite", "musicgen", "mla"):
+        if name in ("main", "granite", "musicgen", "yi", "olmo", "mla"):
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
             if name == "mla":  # SDPA takes v's own 128 dims; its default scale is 1/sqrt(192), as K3's
                 v_lib = v[..., :MLA_V_DIM].contiguous()
@@ -1050,7 +1135,7 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
                 row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
             row["over_library"] = row["ms"] / row["library_ms"]
             row["over_bound"] = row["ms"] / row["bound_ms"]
-        if name in ("granite", "musicgen", "mla"):
+        if name in ("granite", "musicgen", "yi", "olmo", "mla"):
             entry[name] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if name == "musicgen":  # the instance its prefill runs
             instance = f"fa_tc_bf16<{hd},{bk // 64}>"
@@ -1473,8 +1558,21 @@ def greedy(prefill, decode, params, batch: dict) -> list[list]:
     return torch.stack(steps, dim=1).cpu().tolist()  # one sync per batch
 
 
+def server_batches(cfg, prompts: list[str]) -> list[dict]:
+    """``prompts`` as ``BatchServer`` batches them: byte ids cut to
+    SERVE_PROMPT and left-padded with zeros, SERVE_BATCH rows a batch."""
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    tok, rows = ByteTokenizer(cfg.vocab_size), []
+    for p in prompts:
+        ids = tok.encode(p, add_eos=False)[:SERVE_PROMPT]
+        rows.append(np.zeros(SERVE_PROMPT, np.int32))
+        rows[-1][-len(ids):] = ids
+    return [{"tokens": torch.from_numpy(np.stack(rows[i:i + SERVE_BATCH]))} for i in range(0, len(rows), SERVE_BATCH)]
+
+
 def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str,
-                layers: int | None = None) -> None:
+                layers: int | None = None, example=None) -> None:
     """The serving path at full width and depth (or cut to ``layers``),
     seed-initialized on the card, two prefill batches of SERVE_BATCH;
     ``kernel`` is the one its prefill launches once a layer
@@ -1484,7 +1582,12 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     run ``build_prefill_step`` and ``build_decode_step`` in its greedy
     loop (``greedy``) on ``prompt_batch`` inputs of SERVE_PROMPT tokens.
     Each step's host time to enqueue is kept beside its time to finish, and
-    one more prefill and decode step run under the profiler."""
+    one more prefill and decode step run under the profiler.
+
+    With ``example`` (``examples_torch/serve_llm.py``) the prompts go
+    through its ``serve``, whose ``BatchServer`` is timed the same way, and
+    its ids must equal those of ``greedy`` through the step builders on the
+    same batches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention, ssd_scan
@@ -1532,21 +1635,40 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
         requests = batches * SERVE_BATCH
         generate = lambda: [ids for batch in inputs for ids in greedy(prefill, decode, params, batch)]  # noqa: E731
     else:
-        server = BatchServer(cfg, params, batch_size=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                             max_new=SERVE_NEW, device=dev)
-        server.prefill = timed(server.prefill, "prefill")
-        server.decode = timed(server.decode, "decode")
+        class TimedServer(BatchServer):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.prefill = timed(self.prefill, "prefill")
+                self.decode = timed(self.decode, "decode")
+
+        sizes = {"batch_size": SERVE_BATCH, "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW}
         prompts = serve_prompts(SERVE_PROMPTS)
         trace_batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen)}
         request = {"served_by": "BatchServer", "prompts": len(prompts),
                    "prompt_bytes": [min(map(len, prompts)), max(map(len, prompts))]}
         requests = len(prompts)
-        generate = lambda: [r.token_ids for r in server.generate(prompts)]  # noqa: E731
+        if example is None:
+            generate = lambda: [r.token_ids for r in TimedServer(cfg, params, device=dev, **sizes).generate(prompts)]  # noqa: E731
+        else:
+            request["served_by"] = "examples_torch/serve_llm.py serve() through BatchServer"
+
+            def generate():
+                real, example.BatchServer = example.BatchServer, TimedServer
+                try:
+                    with contextlib.redirect_stdout(io.StringIO()) as printed:
+                        results = example.serve(cfg, params, prompts, device=dev, **sizes)
+                finally:
+                    example.BatchServer = real
+                request["printed_lines"] = len(printed.getvalue().splitlines())
+                return [r.token_ids for r in results]
     wrapper.launches = 0
     t0 = time.monotonic()
     results = generate()
     wall = time.monotonic() - t0
     launches = wrapper.launches
+    if example is not None:  # the same batches through the step builders' greedy loop
+        request["same_ids_as_greedy"] = results == [
+            ids for batch in server_batches(cfg, prompts) for ids in greedy(prefill_step, decode_step, params, batch)]
     held = {}
 
     def prefill_once():
@@ -1588,6 +1710,8 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
         raise AssertionError("a request did not get its tokens")
     if not all(finite):
         raise AssertionError("non-finite logits")
+    if example is not None and not request["same_ids_as_greedy"]:
+        raise AssertionError(f"serve_llm's ids for {cfg.name} differ from the step builders' greedy loop")
     summary[kernel]["launches"] += launches
     summary[kernel].setdefault("launches_by_path", {})[f"serve {cfg.name}"] = launches
 
@@ -1806,7 +1930,7 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
     step's time runs to its end on the card.  With ``resume`` a checkpoint
     is saved at step ``TRAIN_CKPT_AT``, and a fresh ``Trainer.from_checkpoint``
     must restore the parameters and optimizer state bit for bit, the step and the
-    sampler, then take 2 steps.  With ``trace`` one more step runs under
+    sampler, then take TRAIN_RESUME_STEPS.  With ``trace`` one more step runs under
     the profiler (at 130-280 K kernel launches a step it takes 40-80 s).
     K1-K4 must not launch."""
     from repro_torch.configs import get_config
@@ -1893,7 +2017,7 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
 def check_resume(dev, cfg, shape, tcfg, trainer, loader) -> dict:
     """A fresh ``Trainer.from_checkpoint`` in the trainer's directory must hold
     the trainer's state bit for bit (it took no step since its save), the
-    saved step and the saved sampler state, and then train 2 steps."""
+    saved step and the saved sampler state, and then train TRAIN_RESUME_STEPS."""
     from repro_torch.runtime import Trainer
     from repro_torch.tree import tree_items
 
@@ -1922,17 +2046,271 @@ def check_resume(dev, cfg, shape, tcfg, trainer, loader) -> dict:
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
-        return 2
+def example_module(name: str):
+    """``examples_torch/<name>.py``, the torch twin of ``examples/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn``'s result and the lines it printed, kept out of this script's
+    output (one JSON object a line)."""
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = fn(*args, **kwargs)
+    return out, printed.getvalue().splitlines()
+
+
+def count_launches(summary: dict, path: str, launches: dict) -> None:
+    for name, n in launches.items():
+        if n:
+            summary[name]["launches"] += n
+            by_path = summary[name].setdefault("launches_by_path", {})
+            by_path[path] = by_path.get(path, 0) + n
+
+
+def phase_example_quickstart(dev: torch.device) -> None:
+    """(a) Paper Listing 1 on the card: every batch (16, 64, 64, 3) uint8
+    there, equal to the twin's CPU run bit for bit."""
+    example = example_module("quickstart")
+    t0 = time.monotonic()
+    card, printed = quiet(example.main, ["--device", str(dev)])
+    seconds = time.monotonic() - t0
+    cpu, _ = quiet(example.main, ["--device", "cpu"])
+    shapes = sorted({(tuple(b.shape), str(b.dtype), b.device.type) for b in card})
+    equal = len(card) == len(cpu) and all(torch.equal(c.cpu(), h) for c, h in zip(card, cpu))
+    emit({"phase": "examples", "example": "quickstart", "batches": len(card), "batch_shapes": shapes,
+          "equal_to_cpu_run": equal, "seconds": seconds, "last_line": printed[-1] if printed else None})
+    if len(card) != 4 or shapes != [((16, 64, 64, 3), "torch.uint8", dev.type)] or not equal:
+        raise AssertionError("quickstart: a batch is not (16, 64, 64, 3) uint8 on the card or differs from the CPU's")
+
+
+def held_to_plain_and_oracle(calls: list, augment: bool) -> dict:
+    """The recorded kernel calls' outputs against the plain version and the
+    ``ref.py`` oracle on the same inputs: the worst ``compare`` of each."""
+    from repro_torch.kernels import dequant_normalize as dn
+    from repro_torch.kernels import ref
+
+    worst: dict[str, dict] = {}
+    for x, args, kwargs, y in calls:
+        if augment:
+            mean, std, flip, crop = (*args, None, None)[:4]
+            plain = dn.dequant_normalize_augment_plain(x, mean, std, flip, crop, **kwargs)
+            oracle = ref.dequant_normalize_augment_ref(x, mean, std, flip=flip, crop=crop, **kwargs)
+        else:
+            plain = dn.dequant_normalize_plain(x, *args, **kwargs)
+            oracle = ref.dequant_normalize_ref(x, *args, **kwargs)
+        for key, want in (("vs_plain", plain), ("vs_oracle", oracle)):
+            row = compare(y, want)
+            if key not in worst or (row["over_bar"], row["max_abs_err"]) > (worst[key]["over_bar"], worst[key]["max_abs_err"]):
+                worst[key] = row
+    return worst
+
+
+# the kernel each section of the imagenet twin decodes its batches with
+IMAGENET_DECODER = {"hot_path": "dequant_normalize_augment",
+                    **dict.fromkeys(("local", "remote", "http", "peers", "projection", "per_file"), "dequant_normalize")}
+
+
+def phase_example_imagenet(dev: torch.device, summary: dict) -> None:
+    """(b) Every section of the imagenet twin on the card at its sizes (96
+    frames of 128x128 resized to 112x112, batch 16), its trace written under
+    a temporary directory; one line a section: images/s, the K1 and K2
+    launches and, for the traced section, its span count.  Every K1 and K2
+    output is held against its plain version and its ``ref.py`` oracle
+    (1 bf16 ulp), and each kernel launches once a decoded batch; the hot
+    path's warm-up call, as in the reference, is one K1 launch more."""
+    from repro_torch.kernels import ops
+
+    example = example_module("imagenet_pipeline")
+    k1, k2 = [], []
+
+    def recorded(fn, log):
+        def call(x, *args, **kwargs):
+            y = fn(x, *args, **kwargs)
+            log.append((x, args, kwargs, y))
+            return y
+        return call
+
+    real_k2, real_k1 = example.dequant_normalize, ops.dequant_normalize_augment
+    example.dequant_normalize = recorded(real_k2, k2)
+    ops.dequant_normalize_augment = recorded(real_k1, k1)  # DeviceTransfer's device_decode calls it through ops
+    trace_before = os.environ.get("REPRO_TRACE_PATH")
     try:
-        from repro_torch.data import SyntheticImageDataset
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable from {ROOT / 'src'}: {e}", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_imagenet_") as d:
+            os.environ["REPRO_TRACE_PATH"] = str(pathlib.Path(d) / "imagenet_trace.json")
+            _zero_kernel_launches()
+            sections = example.run(d, dev)
+            while True:
+                report, printed = quiet(next, sections, None)
+                if report is None:
+                    break
+                sync(dev)
+                launches = _kernel_launches()
+                _zero_kernel_launches()
+                section = report["section"]
+                row = {"phase": "examples", "example": "imagenet_pipeline", **report, "printed_lines": len(printed),
+                       "k1_launches": launches["dequant_normalize_augment"], "k2_launches": launches["dequant_normalize"]}
+                if "seconds" in report:
+                    row["images_per_s"] = report["images"] / report["seconds"]
+                for key, worst in held_to_plain_and_oracle(k1, True).items():
+                    row[f"k1_{key}"] = worst
+                for key, worst in held_to_plain_and_oracle(k2, False).items():
+                    row[f"k2_{key}"] = worst
+                emit(row)
+                decoded = {"dequant_normalize_augment": len(k1) - (section == "hot_path"), "dequant_normalize": len(k2)}
+                expect = dict.fromkeys(decoded, 0)
+                if section in IMAGENET_DECODER:
+                    expect[IMAGENET_DECODER[section]] = example.FRAMES // example.BATCH
+                calls = {"dequant_normalize_augment": len(k1), "dequant_normalize": len(k2), "flash_attention": 0,
+                         "ssd_scan": 0}
+                if decoded != expect or launches != calls:
+                    raise AssertionError(f"imagenet_pipeline {section}: {launches} launches for {decoded} batches")
+                if report.get("images", example.FRAMES) != example.FRAMES:
+                    raise AssertionError(f"imagenet_pipeline {section}: {report['images']} images")
+                if any(row[key]["over_bar"] for key in row if key.endswith(("vs_plain", "vs_oracle"))):
+                    raise AssertionError(f"imagenet_pipeline {section}: a decoded batch over the bar")
+                for name, key in (("dequant_normalize_augment", "k1_vs_plain"), ("dequant_normalize", "k2_vs_plain")):
+                    if key in row:
+                        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], row[key]["max_abs_err"])
+                count_launches(summary, "examples imagenet_pipeline", launches)
+                k1.clear()
+                k2.clear()
+    finally:
+        example.dequant_normalize, ops.dequant_normalize_augment = real_k2, real_k1
+        if trace_before is None:
+            os.environ.pop("REPRO_TRACE_PATH", None)
+        else:
+            os.environ["REPRO_TRACE_PATH"] = trace_before
+
+
+def phase_example_serve(dev: torch.device, summary: dict) -> None:
+    """(c) The serve_llm twin as it stands (smoke Yi-6B on the card, its
+    five prompts), then its ``serve`` at Yi-6B's and OLMo-1B's full width
+    and depth (``phase_serve``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+
+    example = example_module("serve_llm")
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    results, printed = quiet(example.main, ["--device", str(dev)])
+    seconds = time.monotonic() - t0
+    launches = fa.flash_attention.launches
+    layers = get_smoke_config("yi-6b").num_layers
+    batches = -(-len(example.PROMPTS) // 4)
+    emit({"phase": "examples", "example": "serve_llm", "config": "yi-6b smoke", "results": len(results),
+          "tokens_per_result": sorted({len(r.token_ids) for r in results}), "k3_launches": launches,
+          "printed_lines": len(printed), "seconds": seconds})
+    if len(results) != len(example.PROMPTS) or any(len(r.token_ids) != 8 for r in results):
+        raise AssertionError("serve_llm: a prompt did not get its 8 tokens")
+    if launches != layers * batches:
+        raise AssertionError(f"serve_llm: K3 launched {launches} times, not {layers} in each of {batches} prefills")
+    count_launches(summary, "examples serve_llm (smoke)", {"flash_attention": launches})
+    for arch in ("yi-6b", "olmo-1b"):
+        for dtype in ("float32", "bfloat16"):
+            phase_model_check(dev, arch, CHECK_SEQ_DENSE, dtype=dtype, conditioned=CONDITIONED[arch, dtype])
+        phase_serve(dev, summary, arch, "flash_attention", "fa_tc_bf16", example=example)
+        release_card()
+
+
+def phase_example_train(dev: torch.device) -> None:
+    """(d) The train_lm twin at its defaults on the card (qwen3 widened to
+    d_model 512, 8 layers, vocab 50304; seq 128, batch 8, 300 steps, a
+    checkpoint every 100) into a temporary directory, then a second run on
+    the same directory, which must start at the saved step with the
+    checkpoint's parameters bit for bit, and train TRAIN_LM_RESUMED_STEPS
+    more."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.tree import tree_items
+
+    example = example_module("train_lm")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as d:
+        argv = ["--ckpt-dir", d, "--device", str(dev)]
+        rows = []
+        for call, args in (("first", example.parse_args(argv)),
+                           ("second", example.parse_args([*argv, "--steps", str(TRAIN_LM_RESUMED_STEPS)]))):
+            (trainer, pipe, sampler), printed = quiet(example.build, args)
+            start = trainer.step
+            row = {"phase": "examples", "example": "train_lm", "call": call, "start_step": start,
+                   "params": trainer.model.param_count(), "header": printed[-1]}
+            if call == "second":
+                saved = load_checkpoint(d, trainer.params, trainer.opt_state)
+                for key, want in (("checkpoint", saved["params"]), ("first_run", rows[0]["trainer"].params)):
+                    want = dict(tree_items(want))
+                    row[f"unequal_to_{key}"] = [k for k, t in tree_items(trainer.params) if not torch.equal(t, want[k])]
+                row["checkpoint_step"] = saved["step"]
+                del saved, want
+            t0 = time.monotonic()
+            out, printed = quiet(example.train, trainer, pipe, sampler, args.steps)
+            row.update({"steps": trainer.step - start, "seconds": time.monotonic() - t0,
+                        "step_ms": trainer.step_s / (trainer.step - start) * 1e3,
+                        "data_wait_frac": out["data_wait_frac"], "starved": out["starved"],
+                        "losses": {h["step"]: h["loss"] for h in out["history"]},
+                        "last_line": printed[-1]})
+            emit(row)
+            rows.append({**row, "trainer": trainer})
+            if trainer.step != start + args.steps or not all(math.isfinite(h["loss"]) for h in out["history"]):
+                raise AssertionError(f"train_lm {call}: {row}")
+        first, second = rows
+        if second["start_step"] != first["steps"] or second["checkpoint_step"] != first["steps"] \
+                or second["unequal_to_checkpoint"] or second["unequal_to_first_run"]:
+            raise AssertionError(f"train_lm: the second run did not resume the first's checkpoint: {second}")
+        first_loss = list(first["losses"].values())
+        if not first_loss[-1] < first_loss[0]:
+            raise AssertionError(f"train_lm: the loss did not fall: {first_loss}")
+
+
+def phase_oracles(dev: torch.device) -> None:
+    """(e) K3 on both routes at the ``ragged_rows`` shape and K4 on both
+    routes at Jamba's shape (G 8) against the ``ref.py`` oracles: dense
+    softmax attention, and the step-by-step SSD recurrence in f32; bars
+    FA_TOL and SSD_TOL of the kernel's dtype."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ks
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    for dtype in (torch.bfloat16, torch.float32):
+        b, h, hkv, sq, skv, hd = 1, 4, 2, 96, 192, 128
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                   for shape in ((b, h, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd)))
+        got = fa.flash_attention(q, k, v, causal=True, block_q=32, block_k=64)
+        row = {"phase": "examples", "example": "oracles", "kernel": "flash_attention", "case": "ragged_rows",
+               "route": fa.kernel_route(dtype, hd, 64), "q": [b, h, sq, hd], "kv": [b, hkv, skv, hd],
+               "dtype": str(dtype), "oracle": "flash_attention_ref", **within_tol(got, ref.flash_attention_ref(q, k, v))}
+        emit(row)
+        if row["over_bar"]:
+            raise AssertionError(f"flash_attention {dtype} over the bar against its oracle")
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (2, 128, 256, 64, 8, 128)
+        x, dt, a, bb, cc = ssd_inputs(gen, *shape, dtype, dev)
+        y, h_final = ks.ssd_scan(x, dt, a, bb, cc, chunk=128)
+        want_y, want_h = ref.ssd_ref(x.float(), dt, a, bb.float(), cc.float())
+        on_y = within_tol(y, want_y.to(dtype), SSD_TOL)
+        on_h = within_tol(h_final, want_h, SSD_TOL)
+        row = {"phase": "examples", "example": "oracles", "kernel": "ssd_scan", "case": "jamba",
+               "route": ks.kernel_route(dtype, 64, 128), "b_l_h_p_g_n": list(shape), "chunk": 128,
+               "dtype": str(dtype), "oracle": "ssd_ref (f32)", "y": on_y, "h_final": on_h}
+        emit(row)
+        if on_y["over_bar"] or on_h["over_bar"]:
+            raise AssertionError(f"ssd_scan {dtype} over the bar against its oracle")
+
+
+def phase_examples(dev: torch.device, summary: dict) -> None:
+    """The four twins of examples/ on the card, (a)-(d), and (e) K3 and K4
+    against the ``ref.py`` oracles (K1 and K2 are held to theirs in (b))."""
+    phase_example_quickstart(dev)
+    phase_example_imagenet(dev, summary)
+    phase_example_serve(dev, summary)
+    phase_example_train(dev)
+    release_card()
+    phase_oracles(dev)
+
+
+def kernel_summary() -> dict:
+    """The ``kernels`` line's entries, one a kernel, before any phase fills them."""
     summary = {
         name: {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/dequant_normalize.cu",
                "replaces": f"src/repro/kernels/dequant_normalize.py:{line}", "launches": 0,
@@ -1955,6 +2333,21 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the SSD chunked scan",
         "cuda_route": "tc_bf16",  # ssd_tc_bf16, the main path's (bf16) kernel; f32 runs ssd_cuda_f32
     }
+    return summary
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.data import SyntheticImageDataset
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable from {ROOT / 'src'}: {e}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summary = kernel_summary()
     try:
         dev = torch.device("cuda", 0)
         smi = phase_device()
@@ -2013,6 +2406,8 @@ def main() -> int:
         phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True, trace=False)
         phase_train(dev, "mamba2-780m", 2, resume=False, trace=False)
         phase_train(dev, "granite-moe-1b-a400m", 2, resume=False)
+        release_card()
+        phase_examples(dev, summary)
     except Exception:
         traceback.print_exc()
         return 1

@@ -101,6 +101,16 @@ def kernel_route(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
     raise TypeError(f"flash_attention: no CUDA kernel for {dtype}")
 
 
+def kernel_head_dim(dtype: torch.dtype, head_dim: int) -> int:
+    """The head dim a caller pads q, k and v to (with zeros) for the kernel
+    of ``dtype``: the smallest it takes that holds ``head_dim``, else
+    ``head_dim`` itself, which ``kernel_route`` then rejects.  Zero columns
+    add nothing to q·k, and v's give output columns the caller cuts off;
+    the caller passes ``sm_scale`` for the unpadded head dim."""
+    dims = TC_HEAD_DIMS if dtype == torch.bfloat16 else F32_HEAD_DIMS
+    return next((d for d in dims if d >= head_dim), head_dim)
+
+
 def flash_attention_plain(
     q, k, v, *, causal: bool = True, sm_scale: float | None = None,
     block_q: int = 128, block_k: int = 128,

@@ -2,8 +2,9 @@
 
 The counterpart of the reference's ``launch/steps.py`` for one card: a step
 moves its integer inputs to the device and runs the model, the serving
-steps under ``torch.inference_mode()``.  The sharded steps of a distributed
-launcher come with a later slice (ROADMAP §1).
+steps under ``torch.inference_mode()``; ``build_step`` picks the builder
+for a shape's kind.  The reference's sharded steps and their sharding
+helpers wait for its missing ``repro.dist`` (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -119,3 +120,13 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, device=None) -> Step
         return model.decode_step(params, caches, torch.as_tensor(tokens).to(dev), int(pos))
 
     return StepBundle(model, shape, decode)
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, device=None, **kw) -> StepBundle:
+    """The step builder for ``shape.kind``: train (``kw`` goes to
+    ``build_train_step``), prefill or decode."""
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, device=device, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, device, **kw)
+    return build_decode_step(cfg, shape, device)

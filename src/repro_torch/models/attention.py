@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.flash_attention import kernel_head_dim
 from .layers import apply_rope, dtype_of, rms_norm_simple
 from .params import ParamDef
 
@@ -187,23 +188,28 @@ def _causal_flash(q, k, v, positions=None):
     the kernel keeps a key iff its position is at most the query's; the
     padded keys take position INT32_MAX and the padded queries INT32_MIN,
     so no real query sees a padded key.  Without, it masks by index, and
-    the padded keys come after every real query."""
+    the padded keys come after every real query.  A head dim the kernel
+    does not take (the smoke configs' 16 or 24) is zero-padded to the next
+    one it does (``kernel_head_dim``), at the scale 1/sqrt(hd), and the
+    output's padded columns are cut off."""
     b, s, kh, g, hd = q.shape
     pad = -s % FLASH_PAD
     blk = 128 if (s + pad) % 128 == 0 else 64
+    widen = kernel_head_dim(q.dtype, hd) - hd
     qh = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, s, hd)
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
-    if pad:
-        qh, kt, vt = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (qh, kt, vt))
+    if pad or widen:
+        qh, kt, vt = (torch.nn.functional.pad(x, (0, widen, 0, pad)) for x in (qh, kt, vt))
     qh, kt, vt = qh.contiguous(), kt.contiguous(), vt.contiguous()
     q_pos = kv_pos = None
     if positions is not None:
         pos = positions.to(torch.int32)
         q_pos, kv_pos = (torch.cat([pos, pos.new_full((b, pad), fill)], dim=1).contiguous()
                          for fill in (INT32_MIN, INT32_MAX))
-    o = ops.flash_attention(qh, kt, vt, causal=True, block_q=blk, block_k=blk, q_pos=q_pos, kv_pos=kv_pos)
-    return o[:, :, :s].transpose(1, 2)
+    o = ops.flash_attention(qh, kt, vt, causal=True, sm_scale=1.0 / (hd**0.5), block_q=blk, block_k=blk,
+                            q_pos=q_pos, kv_pos=kv_pos)
+    return o[:, :, :s, :hd].transpose(1, 2)
 
 
 def _prompt_positions(x: torch.Tensor, positions):

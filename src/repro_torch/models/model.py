@@ -5,6 +5,9 @@
 - ``decode_step(params, cache, tokens, pos)`` → (logits, cache updated in place)
 - ``cache_spec(batch, seq_cap)`` → the cache's shapes and dtypes;
   ``new_cache(batch, seq_cap, device)`` allocates it.
+- ``abstract_params()`` / ``batch_spec(shape)`` → the parameters and a
+  step's inputs as tensors on the meta device: shapes and dtypes for
+  planning, nothing allocated.
 
 Dense GQA decoders, attention-free Mamba2 (SSD) stacks, and either with
 Mixture-of-Experts FFNs (Granite-MoE; Jamba's hybrid attention/SSD stack);
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from . import transformer as tf
 from .layers import (
     apply_embed,
@@ -34,7 +37,7 @@ from .layers import (
     mask_padded_vocab,
     norm_defs,
 )
-from .params import ParamDef, init_params, param_count
+from .params import ParamDef, abstract_params, init_params, param_count
 
 MTP_WEIGHT = 0.3
 
@@ -69,6 +72,10 @@ class Model:
     def init(self, seed: int, device: torch.device | str | None = None) -> dict:
         """Parameters drawn from ``seed`` on ``device`` (``None`` = the card)."""
         return init_params(self.param_defs(), seed, device)
+
+    def abstract_params(self) -> dict:
+        """The parameter tree on the meta device: shapes and dtypes only."""
+        return abstract_params(self.param_defs())
 
     def param_count(self) -> int:
         return param_count(self.param_defs())
@@ -171,8 +178,30 @@ class Model:
         return cross_entropy(logits, labels_p1, mask)
 
     # ------------------------------------------------------------------
-    # cache
+    # inputs and cache
     # ------------------------------------------------------------------
+    def batch_spec(self, shape: ShapeConfig) -> dict:
+        """A step's inputs at ``shape`` as tensors on the meta device:
+        ``tokens`` (B, S), or (B, S, n_codebooks) for a multi-codebook
+        config, int32, with S = 1 for a decode shape; a train shape adds
+        ``labels`` (shaped as ``tokens``), ``positions`` and ``segment_ids``
+        (B, S); a vision-prefix config takes ``vis_embed`` (B,
+        vis_prefix_len, d_model) in its dtype outside decode."""
+        cfg = self.cfg
+        b = shape.global_batch
+        s = shape.seq_len if shape.kind != "decode" else 1
+
+        def meta(size, dtype=torch.int32):
+            return torch.empty(size, dtype=dtype, device="meta")
+
+        tok_shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks > 1 else (b, s)
+        spec = {"tokens": meta(tok_shape)}
+        if shape.kind == "train":
+            spec.update(labels=meta(tok_shape), positions=meta((b, s)), segment_ids=meta((b, s)))
+        if cfg.vis_prefix_len and shape.kind != "decode":
+            spec["vis_embed"] = meta((b, cfg.vis_prefix_len, cfg.d_model), dtype_of(cfg))
+        return spec
+
     def cache_spec(self, batch: int, seq_cap: int) -> list:
         """Shapes and dtypes of the cache, in the prefill cache's structure:
         per segment ``{"blocks": [...]}``, one dict per block of the

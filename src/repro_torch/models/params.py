@@ -1,9 +1,12 @@
 """Parameter declaration: shapes, logical axes and initializers.
 
 Model code declares its parameters as trees (dicts and lists) of
-``ParamDef``; ``init_params`` materializes one on a device.  The logical
-axis names ("embed", "heads", "ffn", "vocab", ...) are kept for the
-sharding rules a distributed launcher will map them through.
+``ParamDef``; ``init_params`` materializes one on a device, and
+``abstract_params`` gives its shapes and dtypes on the meta device, for
+planning a model too large for the host.  ``param_pspecs`` and
+``shard_info`` map the logical axis names ("embed", "heads", "ffn",
+"vocab", ...) through a rules dict to mesh-axis names, and count the bytes
+each device of a mesh would hold; they need no mesh.
 """
 
 from __future__ import annotations
@@ -78,3 +81,70 @@ def init_params(tree: Pytree, seed: int, device: torch.device | str | None = Non
         return (x * scale).to(d.dtype)
 
     return tree_map_defs(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# planning: shapes and sharding specs without allocation or a mesh
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(tree: Pytree) -> Pytree:
+    """The tree as tensors on ``torch.device("meta")``: each leaf's shape and
+    dtype, no storage (the counterpart of the reference's
+    ``jax.ShapeDtypeStruct`` tree), so a full-size model is planned on any
+    host."""
+    return tree_map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), tree)
+
+
+def logical_specs(tree: Pytree) -> Pytree:
+    """Tree of logical-axis tuples (same structure as params)."""
+    return tree_map_defs(lambda d: d.axes, tree)
+
+
+def resolve_pspec(axes: tuple[str | None, ...], rules: dict[str, Any]) -> tuple:
+    """Map logical axes to mesh axes: the entries of the reference's
+    ``PartitionSpec`` as a plain tuple, each ``None``, a mesh-axis name or a
+    tuple of names.  A rule value may be a mesh-axis name, a tuple of names,
+    or None.  A mesh axis may be used at most once per param; later dims
+    lose (stay replicated) if an axis is already taken.  Trailing ``None``s
+    are dropped."""
+    used: set[str] = set()
+    out: list[Any] = []
+    for ax in axes:
+        mesh_ax = rules.get(ax) if ax is not None else None
+        if mesh_ax is None:
+            out.append(None)
+            continue
+        axs = mesh_ax if isinstance(mesh_ax, tuple) else (mesh_ax,)
+        free = tuple(a for a in axs if a not in used)
+        if not free:
+            out.append(None)
+            continue
+        used.update(free)
+        out.append(free if len(free) > 1 else free[0])
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def param_pspecs(tree: Pytree, rules: dict[str, Any]) -> Pytree:
+    return tree_map_defs(lambda d: resolve_pspec(d.axes, rules), tree)
+
+
+def shard_info(tree: Pytree, rules: dict[str, Any], mesh_shape: dict[str, int]) -> dict:
+    """Bytes-per-device accounting for capacity planning: each leaf's bytes,
+    and its share on one device of a mesh of ``mesh_shape`` (axis name →
+    size) under ``rules``, rounded down as the reference rounds."""
+    total = 0
+    per_device = 0
+    for d in _leaves(tree):
+        bytes_ = math.prod(d.shape) * d.dtype.itemsize
+        div = 1
+        for entry in resolve_pspec(d.axes, rules):
+            if entry is None:
+                continue
+            for ax in entry if isinstance(entry, tuple) else (entry,):
+                div *= mesh_shape.get(ax, 1)
+        total += bytes_
+        per_device += bytes_ // div
+    return {"total_bytes": total, "per_device_bytes": per_device}

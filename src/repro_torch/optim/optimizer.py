@@ -77,6 +77,14 @@ def init_opt_state(cfg: OptConfig, params: Any) -> dict:
     raise ValueError(cfg.kind)
 
 
+def abstract_opt_state(cfg: OptConfig, abstract_params: Any) -> dict:
+    """``init_opt_state``'s tree on the meta device: the state's shapes and
+    dtypes for a parameter tree (such as ``Model.abstract_params()``), no
+    storage."""
+    return init_opt_state(cfg, tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                                        abstract_params))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))

@@ -203,3 +203,47 @@ def test_position_arguments_are_checked():
         ops.flash_attention(q, k, v, block_q=64, block_k=64, q_pos=pos.long(), kv_pos=pos.long())
     with pytest.raises(ValueError, match="kv_pos must be int32"):
         ops.flash_attention(q, k, v, block_q=64, block_k=64, q_pos=pos, kv_pos=pos[:, :32])
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 16, 32), (torch.bfloat16, 24, 32), (torch.bfloat16, 64, 64), (torch.bfloat16, 160, 192),
+    (torch.bfloat16, 256, 256), (torch.float32, 16, 32), (torch.float32, 200, 256), (torch.float32, 512, 512),
+])
+def test_kernel_head_dim_is_the_smallest_the_kernel_takes(dtype, hd, want):
+    assert fa.kernel_head_dim(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 24])
+def test_a_head_dim_the_kernel_does_not_take_is_zero_padded(monkeypatch, dtype, hd):
+    """The smoke configs' head dims (16; MLA's 24) reach the kernel padded
+    to 32 with zeros, a head dim its CUDA route takes, at the scale of the
+    real head dim: the prefill's attention equals the unpadded attention,
+    which the plain version takes at any head dim, and the Pallas kernel's
+    at the real head dim."""
+    from repro_torch.models import attention
+
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[-1], fa.kernel_route(q.dtype, q.shape[-1], kw["block_k"])))
+        return fa.flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(attention.ops, "flash_attention", spy)
+    b, s, kh, g = 2, 40, 2, 2
+    arrays = _qkv(b, kh * g, kh, s, s, hd, seed=hd)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(td) for a in arrays)
+    got = attention._causal_flash(q.reshape(b, kh, g, s, hd).permute(0, 3, 1, 2, 4), k.transpose(1, 2),
+                                  v.transpose(1, 2))
+    assert seen == [(32, "tc_bf16" if dtype == "bfloat16" else "cuda_f32")]
+    monkeypatch.undo()
+    assert tuple(got.shape) == (b, s, kh * g, hd) and got.dtype == td
+    padded = -s % 64
+    want = ops.flash_attention(*(torch.nn.functional.pad(t, (0, 0, 0, padded)) for t in (q, k, v)),
+                               block_q=64, block_k=64)[:, :, :s]
+    np.testing.assert_allclose(got.transpose(1, 2).float().numpy(), want.float().numpy(), rtol=0,
+                               atol=2e-6 if dtype == "float32" else 0)
+    ref = np.asarray(pallas_flash(*(jnp.asarray(np.pad(a, ((0, 0), (0, 0), (0, padded), (0, 0))), dtype=dtype)
+                                    for a in arrays), interpret=True, block_q=64, block_k=64), np.float32)
+    np.testing.assert_allclose(got.transpose(1, 2).float().numpy(), ref[:, :, :s], atol=TOL[dtype], rtol=TOL[dtype])

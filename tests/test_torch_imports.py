@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+EXAMPLES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples_torch").glob("*.py"))
 
 
 def _port_modules() -> list[str]:
@@ -33,10 +34,13 @@ def _is_reference(name: str) -> bool:
 
 def test_every_port_module_imports_without_jax_or_the_reference():
     code = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for path in {EXAMPLES!r}:\n"  # the twins of examples/, by path
+        "    spec = importlib.util.spec_from_file_location(path[:-3].replace('/', '_'), path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(json.dumps(sorted(m for m, v in sys.modules.items() if v is not None)))\n"
     )
     out = subprocess.run(
@@ -52,7 +56,7 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     assert [m for m in loaded if _is_reference(m) or m.split(".")[0] == "jax"] == []
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "tools/route_check.py", *sorted(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tools/route_check.py", *EXAMPLES, *sorted(
     str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
 )])
 def test_no_source_names_jax_or_the_reference_in_an_import(path):
@@ -67,6 +71,50 @@ def test_no_source_names_jax_or_the_reference_in_an_import(path):
         for name in names:
             assert name.split(".")[0] != "jax", f"{path} imports {name}"
             assert not _is_reference(name), f"{path} imports {name}"
+
+
+def test_the_four_twins_exist_and_importing_one_touches_no_card():
+    """Each twin keeps its work in functions: importing it starts no
+    pipeline, allocates nothing and asks torch nothing about CUDA (each
+    CUDA entry point raises here), and each has ``main(argv=None)``."""
+    assert [pathlib.Path(p).name for p in EXAMPLES] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
+    code = (
+        "import importlib.util, sys, torch\n"
+        "def touched(*a, **k):\n"
+        "    raise AssertionError('CUDA touched at import')\n"
+        "for name in ('is_available', 'device_count', 'init', '_lazy_init', 'current_device',\n"
+        "             'set_device', 'synchronize', 'get_device_name', 'Stream', 'Event'):\n"
+        "    setattr(torch.cuda, name, touched)\n"
+        f"for path in {EXAMPLES!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(path[:-3].replace('/', '_'), path)\n"
+        "    module = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(module)\n"
+        "    assert callable(module.main), path\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_each_twin_runs_on_the_card_by_default_and_raises_without_one(monkeypatch, tmp_path):
+    """``main([])`` means the CUDA card; with none, each twin raises rather
+    than carry on on the CPU."""
+    import importlib.util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(pathlib.Path(path).stem + "_twin", ROOT / path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        argv = ["--ckpt-dir", str(tmp_path)] if path.endswith("train_lm.py") else []
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main(argv)
 
 
 COPIED = [
