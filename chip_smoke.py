@@ -57,14 +57,23 @@ and a copy of the same bytes), then runs
     server's greedy loop (``BatchServer`` takes byte prompts, which carry
     neither), K3 in every prefill; each checked before at 2 layers against
     the CPU in f32 and bf16;
+  - the reference's long shapes through ``build_step`` at full width and
+    depth (``long_shapes``): K3 at ``prefill_32k``'s attention and K4 at
+    ``long_500k``'s scan against their plain versions; Qwen3-0.6B at
+    ``prefill_32k`` (4 rows of 32,768) and ``decode_32k`` (8 rows, a
+    prefill of 32,704 tokens, then 64 greedy steps to the cache's last
+    slot); the decode step after a 32k prompt against the prefill of one
+    token more; Mamba2-780m at ``long_500k`` (524,288 tokens, then 16
+    decode steps); the state after 524,288 tokens against a prefill in
+    another chunk and 64 decode steps;
   - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M,
     DeepSeek-V3, MusicGen-medium and InternVL2-2B at full width, cut to 2
-    layers (DeepSeek's MTP block beside them), on the card against the same step on the CPU, in f32
+    layers (DeepSeek to 1, its MTP block beside it), on the card against the same step on the CPU, in f32
     with TF32 off and in bf16 (``train_check``; Granite's aux loss and
     routes, DeepSeek's MTP loss too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
-    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 3 steps,
-    with a checkpoint at step 2 that a fresh ``Trainer.from_checkpoint``
+    (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 2 steps,
+    with a checkpoint at step 1 that a fresh ``Trainer.from_checkpoint``
     restores bit for bit, Mamba2-780m for 2 steps, and Granite-MoE-1B-A400M
     for 2 steps (its aux loss beside the LM loss).  Training launches
     none of the four kernels: the reference trains through its plain
@@ -76,10 +85,11 @@ and a copy of the same bytes), then runs
     oracle; (c) ``serve_llm`` at its smoke config, then Yi-6B and OLMo-1B
     checked in 2 layers against the CPU (f32 and bf16) and served at full
     width and depth through its ``serve``, each batch's ids equal to the
-    step builders' greedy loop; (d) ``train_lm`` at its defaults, then
+    step builders' greedy loop; (d) ``train_lm`` at its defaults for 100 steps, then
     again on the same directory, resuming at the saved step; (e) K3 and K4
     on both routes against their ``ref.py`` oracles.
-Each phase prints one JSON line.  The last three lines are the kernel
+Each phase prints one JSON line, then a ``seconds`` line with its time and
+the script's so far.  The last three lines are the kernel
 summary, the card's name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": ...}``.
 
@@ -135,17 +145,28 @@ SWAP_GAP_F32 = 1e-5  # f32, TF32 off: the same, for rounding some 1e-6 of a valu
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_PROMPTS = 8, 512, 16, 16
 MLA_V_DIM = 128  # DeepSeek-V3's v head dim, padded to q's 192 for K3
 CHECK_SEQ, CHECK_BATCH = 512, 2  # train_check: one step, card against CPU, 2 layers
-DEEPSEEK_CHECK_SEQ = 128  # DeepSeek-V3's train_check, one row: 3.71 B parameters, two steps on the CPU
+DEEPSEEK_CHECK_SEQ = 128  # DeepSeek-V3's train_check, one row, two steps on the CPU
+DEEPSEEK_CHECK_LAYERS = 1  # cut from 2 for the time limit: one dense MLA layer and the MTP block, 3.12 B
 TRAIN_SEQ, TRAIN_BATCH = 4096, 8  # train: TRAIN_4K's sequence, its global batch 256 cut to 8
-# Qwen3's train phase, cut from 6 steps, a checkpoint at 3 and 2 resumed steps for the time limit
-TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 3, 2, 1
-TRAIN_LM_RESUMED_STEPS = 40  # examples phase: train_lm's second run, two of its logged steps
+# Qwen3's train phase, cut for the time limit from 6 steps, a checkpoint at 3 and 2 resumed steps,
+# then from 3, a checkpoint at 2 and 1 resumed step
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_RESUME_STEPS = 2, 1, 1
+# examples phase: train_lm's first run, cut from its default 300 steps for the time limit (one
+# checkpoint, at 100), and its second run, two of its logged steps
+TRAIN_LM_FIRST_STEPS, TRAIN_LM_RESUMED_STEPS = 100, 40
 OWN_ROUNDING = 1.5  # a bf16 gradient leaf may differ by 1.5x the CPU's own bf16 rounding of it
 SHARD_SAMPLES, SHARD_WINDOW = 256, 512  # shards phase: 6 shards of about 50 MB; the shuffle spans two
 SHARD_CACHE_BYTES = 110_000_000  # about two shards: every epoch over HTTP evicts
 LM_DOCS, LM_BATCHES = 4096, 3  # shards phase (f): token documents in 4 shards; batches held to the CPU run
 MP_WORKERS = 4  # shards phase (g): the process-pool baseline's workers
 CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check prompt
+# long_shapes: the reference's SHAPES at full width and depth; rows cut from 32 and 128 for the
+# time limit and the card's 80 GB (a decode_32k row of Qwen3-0.6B holds a 3.76 GB cache)
+LONG_ROWS = {"prefill_32k": 4, "decode_32k": 8, "long_500k": 1}
+LONG_TAIL = 64  # decode_32k decodes the cache's last 64 slots; the checks decode 64 tokens after a prefill
+LONG_500K_STEPS = 16  # long_500k's decode steps from the prefill's state
+LONG_CHECK_LAYERS = 4  # the decode-against-prefill and state checks: full width, 4 layers
+LONG_TIMED_RUNS = 5  # K3/K4 at the long shapes: each launch is 50-160 ms
 # Yi-6B and OLMo-1B have no qk_norm: on the seed-0 weights an H100 read Yi f32 1.52e-4 / 3.90e-4 and
 # bf16 8.7e-3 / 0.127 (prefill / decode logits), OLMo bf16 5.95e-2 / 0.225, over their bars, and OLMo f32
 # 4.8e-5 / 7.4e-5, within; the checks over the bar run on condition_attention's weights
@@ -155,6 +176,17 @@ CONDITIONED = {("yi-6b", "float32"): True, ("yi-6b", "bfloat16"): True,
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+SCRIPT_START = time.monotonic()
+
+
+def timed(label: str, fn, *args, **kwargs) -> None:
+    """Run one phase, then print its seconds and the script's so far under ``label``."""
+    t0 = time.monotonic()
+    fn(*args, **kwargs)
+    emit({"phase": "seconds", "of": label, "seconds": time.monotonic() - t0,
+          "script_seconds": time.monotonic() - SCRIPT_START})
 
 
 def bf16_ulp_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -208,14 +240,15 @@ def _timed_once(fn, flush: torch.Tensor, hide_host: bool) -> float:
     return start.elapsed_time(end)
 
 
-def time_ms(fn, flush: torch.Tensor, hide_host: bool = True) -> float:
-    """Median device time of ``fn`` over TIMED_RUNS launches, each after an
-    L2 flush (the decode reads a batch that was just copied in, cold).  With
-    ``hide_host`` the card sleeps after the flush while the host enqueues
-    ``fn``, so the wrapper's host time before its launch is not counted."""
-    for _ in range(3):
+def time_ms(fn, flush: torch.Tensor, hide_host: bool = True, runs: int = TIMED_RUNS, warm: int = 3) -> float:
+    """Median device time of ``fn`` over ``runs`` launches after ``warm``
+    untimed ones, each after an L2 flush (the decode reads a batch that was
+    just copied in, cold).  With ``hide_host`` the card sleeps after the
+    flush while the host enqueues ``fn``, so the wrapper's host time before
+    its launch is not counted."""
+    for _ in range(warm):
         fn()
-    return statistics.median(_timed_once(fn, flush, hide_host) for _ in range(TIMED_RUNS))
+    return statistics.median(_timed_once(fn, flush, hide_host) for _ in range(runs))
 
 
 def time_interleaved_ms(fns: dict, flush: torch.Tensor) -> dict:
@@ -961,17 +994,24 @@ def shards_baseline(root: pathlib.Path, dev, summary: dict, local_images_per_s: 
 
 
 def within_tol(got: torch.Tensor, want: torch.Tensor, tols: dict = FA_TOL) -> dict:
-    """|got - want| against ``tols[dtype]`` as atol and rtol, and bf16 ulps apart."""
+    """|got - want| against ``tols[dtype]`` as atol and rtol, and bf16 ulps
+    apart; taken a slice of 2**26 elements at a time, so that the f32
+    copies of a long shape's outputs never stand whole beside them."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
-    if not torch.isfinite(got.float()).all():
-        raise AssertionError("non-finite output")
     tol = tols[got.dtype]
-    err = (got.float() - want.float()).abs()
-    row = {"max_abs_err": float(err.max()), "bar": f"atol=rtol={tol}",
-           "over_bar": int((err > tol + tol * want.float().abs()).sum())}
+    err = over = ulps = 0
+    for g, w in zip(got.reshape(-1).split(1 << 26), want.reshape(-1).split(1 << 26)):
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError("non-finite output")
+        diff = (g.float() - w.float()).abs()
+        err = max(err, float(diff.max()))
+        over += int((diff > tol + tol * w.float().abs()).sum())
+        if got.dtype == torch.bfloat16:
+            ulps = max(ulps, int(bf16_ulp_steps(g, w).max()))
+    row = {"max_abs_err": err, "bar": f"atol=rtol={tol}", "over_bar": over}
     if got.dtype == torch.bfloat16:
-        row["max_bf16_ulps"] = int(bf16_ulp_steps(got, want).max())
+        row["max_bf16_ulps"] = ulps
     return row
 
 
@@ -1154,12 +1194,15 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
 
 def ssd_inputs(gen, b, l, h, p, g, n, dtype, dev):
     """The reference sweep's distributions: x ~ N(0, 1), dt = softplus(N(0, 1)),
-    a = -exp(N(0, 1) / 2), b and c ~ N(0, 0.3^2)."""
-    x = torch.randn((b, l, h, p), generator=gen).to(dev, dtype)
-    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen)).to(dev)
-    a = (-torch.exp(torch.randn(h, generator=gen) * 0.5)).to(dev)
-    bm = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dev, dtype)
-    cm = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dev, dtype)
+    a = -exp(N(0, 1) / 2), b and c ~ N(0, 0.3^2); drawn on ``gen``'s device."""
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    x = normal((b, l, h, p)).to(dev, dtype)
+    dt = torch.nn.functional.softplus(normal((b, l, h))).to(dev)
+    a = (-torch.exp(normal(h) * 0.5)).to(dev)
+    bm = (normal((b, l, g, n)) * 0.3).to(dev, dtype)
+    cm = (normal((b, l, g, n)) * 0.3).to(dev, dtype)
     return x, dt, a, bm, cm
 
 
@@ -1571,6 +1614,16 @@ def server_batches(cfg, prompts: list[str]) -> list[dict]:
     return [{"tokens": torch.from_numpy(np.stack(rows[i:i + SERVE_BATCH]))} for i in range(0, len(rows), SERVE_BATCH)]
 
 
+def spec_bytes(model, rows: int, cap: int) -> dict:
+    """What ``abstract_params`` and ``cache_spec`` say the run holds."""
+    from repro_torch.tree import tree_leaves
+
+    params = sum(t.numel() * t.element_size() for t in tree_leaves(model.abstract_params()))
+    cache = sum(math.prod(shape) * dt.itemsize for seg in model.cache_spec(rows, cap)
+                for blk in seg["blocks"] for shape, dt in blk.values())
+    return {"param_bytes": params, "cache_bytes": cache}
+
+
 def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str,
                 layers: int | None = None, example=None) -> None:
     """The serving path at full width and depth (or cut to ``layers``),
@@ -1594,7 +1647,6 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import Model
     from repro_torch.runtime import BatchServer
-    from repro_torch.tree import tree_leaves
 
     wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
     cfg = get_config(arch)
@@ -1677,12 +1729,6 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     prefill_trace = trace_step(dev, prefill_once, kernel_symbol)
     cur = held["logits"].argmax(dim=-1)[:, None]
     decode_trace = trace_step(dev, lambda: decode_step(params, held["cache"], cur, SERVE_PROMPT), kernel_symbol)
-    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    cache_bytes = sum(
-        math.prod(shape) * dt.itemsize
-        for seg in model.cache_spec(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
-        for blk in seg["blocks"] for shape, dt in blk.values()
-    )
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "params": model.param_count(), "dtype": cfg.dtype, "batch": SERVE_BATCH,
           "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW, **request, "prefill_batches": batches,
@@ -1698,7 +1744,7 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
                               "decode": decode_trace["device_busy_ms"] / statistics.median(times["decode"]),
                               "note": "traced busy ms over the untraced step's wall ms (prefill: the faster batch)"},
           "generated_tokens_per_s": sum(len(ids) for ids in results) / wall, "wall_s": wall,
-          "param_bytes": param_bytes, "cache_bytes": cache_bytes})
+          **spec_bytes(model, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)})
     if batch_launches != [cfg.num_layers] * batches:
         raise AssertionError(f"{kernel} launched {batch_launches} times in {batches} prefill batches of "
                              f"{cfg.num_layers} layers")
@@ -1714,6 +1760,319 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
         raise AssertionError(f"serve_llm's ids for {cfg.name} differ from the step builders' greedy loop")
     summary[kernel]["launches"] += launches
     summary[kernel].setdefault("launches_by_path", {})[f"serve {cfg.name}"] = launches
+
+
+def long_steps(cfg, name: str, rows: int, dev: torch.device):
+    """``build_step``'s prefill and decode steps of the reference's
+    ``SHAPES[name]`` at ``rows`` rows; a decode shape's prefill is the same
+    shape with kind ``prefill``, its decode step the shape's own."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.steps import build_step
+
+    shape = dataclasses.replace(SHAPES[name], global_batch=rows)
+    prefill = build_step(cfg, dataclasses.replace(shape, kind="prefill"), dev)
+    decode = build_step(cfg, dataclasses.replace(shape, kind="decode"), dev)
+    return shape, prefill.fn, decode.fn
+
+
+def long_k3(dev: torch.device, summary: dict, card: str) -> None:
+    """K3 at ``prefill_32k``'s attention, q (4,16,32768,128) and k/v
+    (4,8,32768,128) bf16, seeded on the card, causal, tile 128 (the tile
+    ``_causal_flash`` picks): within FA_TOL of its plain version, timed
+    beside it and beside SDPA."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("qwen3-0.6b")
+    b, s = LONG_ROWS["prefill_32k"], SHAPES["prefill_32k"].seq_len
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+               for shape in ((b, h, s, hd), (b, hkv, s, hd), (b, hkv, s, hd)))
+    kw = {"causal": True, "block_q": 128, "block_k": 128}
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    sync(dev)
+    row = {"phase": "long_shapes", "case": "k3_prefill_32k", "kernel": "flash_attention", "q": [b, h, s, hd],
+           "kv": [b, hkv, s, hd], "dtype": "torch.bfloat16", "block_k": 128,
+           "route": fa.kernel_route(torch.bfloat16, hd, 128), **within_tol(got, want)}
+    del want
+    if row["over_bar"]:
+        emit(row)
+        raise AssertionError(f"flash_attention at prefill_32k: {row['over_bar']} elements over the bar")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush, runs=LONG_TIMED_RUNS)
+    row["library_ms"] = time_ms(library_attention(q, k, v, True), flush, runs=LONG_TIMED_RUNS)
+    row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush, runs=2, warm=0)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    row.update(bound(nbytes, 4 * hd * causal_pairs(s, s, True) * b * h, BF16_TC_OPS_PER_S, card))
+    row["over_bound"], row["over_library"] = row["ms"] / row["bound_ms"], row["ms"] / row["library_ms"]
+    entry = summary["flash_attention"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+    entry["prefill_32k"] = {key: row[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")}
+    emit(row)
+
+
+def long_k4(dev: torch.device, summary: dict, card: str) -> None:
+    """K4 at ``long_500k``'s scan, x (1,524288,48,64) bf16 (Mamba2-780m's
+    heads, one group of d_state 128), seeded on the card, chunk 256 (2,048
+    chunks): y and h_final within SSD_TOL of its plain version, timed
+    beside it.  At batch 1 a launch is 48 blocks, one partial wave of the
+    card's SMs, so its time is one block's (``batch1_ms``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models.ssm import scan_chunk
+
+    cfg = get_config("mamba2-780m")
+    ssd, l = cfg.ssd, SHAPES["long_500k"].seq_len
+    shape = (LONG_ROWS["long_500k"], l, ssd.n_heads(cfg.d_model), ssd.head_dim, ssd.n_groups, ssd.d_state)
+    chunk = scan_chunk(cfg, l)
+    args = ssd_inputs(torch.Generator(device=dev).manual_seed(11), *shape, torch.bfloat16, dev)
+    y, h_final = ks.ssd_scan(*args, chunk=chunk)
+    want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk)
+    sync(dev)
+    on_y, on_h = within_tol(y, want_y, SSD_TOL), within_tol(h_final, want_h, SSD_TOL)
+    del want_y, want_h
+    row = {"phase": "long_shapes", "case": "k4_long_500k", "kernel": "ssd_scan", "b_l_h_p_g_n": list(shape),
+           "chunk": chunk, "chunks": shape[1] // chunk, "dtype": "torch.bfloat16",
+           "route": ks.kernel_route(torch.bfloat16, shape[3], shape[5]), "y": on_y, "h_final": on_h,
+           "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+    if on_y["over_bar"] or on_h["over_bar"]:
+        emit(row)
+        raise AssertionError("ssd_scan at long_500k: elements over the bar")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk), flush, runs=LONG_TIMED_RUNS)
+    row["batch1_ms"] = row["ms"]
+    row["ms_per_chunk"] = row["ms"] / row["chunks"]
+    row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk), flush, runs=2, warm=0)
+    row["library_ms"] = None
+    b, l, h, p, _, n = shape
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h_final))
+    row.update(bound(nbytes, ssd_ops(b, l, h, p, n, chunk), BF16_TC_OPS_PER_S, card))
+    row["over_bound"] = row["ms"] / row["bound_ms"]
+    row["note"] = "batch1_ms: the launch itself, 48 blocks of one (batch, head) each on 132 SMs"
+    entry = summary["ssd_scan"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+    entry["long_500k"] = {key: row[key] for key in (
+        "ms", "batch1_ms", "plain_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")}
+    emit(row)
+
+
+def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, steps: int,
+             prefills: int, kernel: str, kernel_symbol: str, trace: str) -> None:
+    """``arch`` at full width and depth through ``build_step`` at the
+    reference's shape ``name`` (``LONG_ROWS[name]`` rows, the shape's
+    sequence as the cache's capacity): ``prefills`` seeded prompts of the
+    shape's sequence less ``room`` tokens, then ``steps`` greedy decode
+    steps after the last one.  Each prefill must launch ``kernel`` once a
+    layer and each decode step none; every logit must be finite.  Readings: wall and host enqueue
+    ms of each prefill and step, the card's busy ms of one more prefill or
+    decode step under the profiler (``trace``) with the kernel's share,
+    the peak of ``max_memory_allocated`` beside the bytes ``abstract_params``
+    and ``cache_spec`` give, and the greedy ids."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.models import Model
+
+    wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
+    cfg = get_config(arch)
+    rows = LONG_ROWS[name]
+    shape, prefill, decode = long_steps(cfg, name, rows, dev)
+    prompt = shape.seq_len - room
+    t0 = time.monotonic()
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    gen = torch.Generator().manual_seed(12)
+    times: dict[str, list[float]] = {"prefill": [], "prefill_enqueue": [], "decode": [], "decode_enqueue": []}
+    launches, finite, ids = [], [], {"prefill": [], "decode": []}
+
+    def run(key, fn, *args, **kwargs):
+        sync(dev)
+        before = wrapper.launches
+        start = time.perf_counter()
+        logits, cache = fn(*args, **kwargs)
+        times[f"{key}_enqueue"].append((time.perf_counter() - start) * 1e3)
+        sync(dev)
+        times[key].append((time.perf_counter() - start) * 1e3)
+        launches.append((key, wrapper.launches - before))
+        finite.append(bool(torch.isfinite(logits).all()))
+        return logits, cache
+
+    release_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held: dict = {}
+    for _ in range(prefills):
+        tokens = torch.randint(0, cfg.vocab_size, (rows, prompt), generator=gen)
+        held.clear()  # the last prefill's cache goes before the next one is made
+        held["logits"], held["cache"] = run("prefill", prefill, params, {"tokens": tokens}, seq_cap=shape.seq_len)
+        ids["prefill"].append(held["logits"].argmax(dim=-1).tolist())
+    if trace == "prefill":
+        held.clear()
+        prefill_trace = trace_step(dev, lambda: held.update(zip(
+            ("logits", "cache"), prefill(params, {"tokens": tokens}, seq_cap=shape.seq_len))), kernel_symbol)
+    cur = held["logits"].argmax(dim=-1)[:, None]
+    for t in range(steps):
+        logits, held["cache"] = run("decode", decode, params, held["cache"], cur, prompt + t)
+        cur = logits.argmax(dim=-1)[:, None]
+        ids["decode"].append(cur[:, 0].tolist())
+    peak = torch.cuda.max_memory_allocated(dev)
+    row = {"phase": "long_shapes", "case": name, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": model.param_count(), "dtype": cfg.dtype, "shape": dataclasses.asdict(shape),
+           "rows": rows, "prompt": prompt, "decode_steps": steps, "kernel": kernel,
+           "launches_per_prefill": [n for key, n in launches if key == "prefill"],
+           "decode_launches": sum(n for key, n in launches if key == "decode"),
+           "reading": "the timings and bytes are readings, not gates",
+           "prefill_ms": times["prefill"], "prefill_enqueue_ms": times["prefill_enqueue"]}
+    if steps:
+        row.update(decode_ms_per_token=statistics.median(times["decode"]),
+                   decode_enqueue_ms_per_token=statistics.median(times["decode_enqueue"]),
+                   decode_ms=[min(times["decode"]), max(times["decode"])])
+    if trace == "prefill":
+        row["prefill_trace"] = prefill_trace
+        row["kernel_share"] = prefill_trace["kernel_ms"] / prefill_trace["device_busy_ms"]
+        row["card_busy_share"] = prefill_trace["device_busy_ms"] / min(times["prefill"])
+    else:
+        row["decode_trace"] = trace_step(dev, lambda: decode(params, held["cache"], cur, prompt + steps - 1),
+                                         kernel_symbol)
+        row["card_busy_share"] = row["decode_trace"]["device_busy_ms"] / row["decode_ms_per_token"]
+    row.update(max_memory_allocated=peak, **spec_bytes(model, rows, shape.seq_len),
+               greedy_ids={"prefill": ids["prefill"], "decode_first_row": [i[0] for i in ids["decode"]]},
+               all_logits_finite=all(finite), seconds=time.monotonic() - t0)
+    emit(row)
+    kinds = [kind for kind, _ in cfg.layer_plan()]
+    if row["launches_per_prefill"] != [kinds.count({"flash_attention": "attn", "ssd_scan": "ssd"}[kernel])] * prefills:
+        raise AssertionError(f"long_shapes {name}: {kernel} launched {row['launches_per_prefill']} times a prefill")
+    if row["decode_launches"]:
+        raise AssertionError(f"long_shapes {name}: a decode step launched {kernel}")
+    if trace == "prefill" and (prefill_trace["kernel_launches"] < 1 or prefill_trace["kernel_ms"] <= 0):
+        raise AssertionError(f"long_shapes {name}: the traced prefill shows no launch of {kernel_symbol}")
+    if not all(finite):
+        raise AssertionError(f"long_shapes {name}: non-finite logits")
+    total = sum(n for key, n in launches if key == "prefill")
+    summary[kernel]["launches"] += total
+    summary[kernel].setdefault("launches_by_path", {})[f"long_shapes {name}"] = total
+
+
+def cache_errors(got: list, want: list, names: tuple) -> dict:
+    """Each layer's ``names`` entries of two caches: the largest difference
+    over the layer's largest |want| value, the worst layer's."""
+    worst: dict[str, float] = {}
+    for seg, want_seg in zip(got, want):
+        for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+            for name in names:
+                for layer in range(blk[name].shape[0]):
+                    g, w = blk[name][layer].float(), want_blk[name][layer].float()
+                    err = float((g - w).abs().max() / w.abs().max())
+                    worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def long_decode_check(dev: torch.device) -> None:
+    """Qwen3-0.6B at full width, LONG_CHECK_LAYERS layers, 2 rows, through
+    ``decode_32k``'s steps: the logits of the greedy decode step after a
+    prefill of 32,704 tokens (into the 32,768-slot cache) against the last
+    logits of a prefill of those 32,705 tokens (padded to 32,768 for K3),
+    within MODEL_REL of the largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=LONG_CHECK_LAYERS)
+    shape, prefill, decode = long_steps(cfg, "decode_32k", 2, dev)
+    s = shape.seq_len - LONG_TAIL
+    t0 = time.monotonic()
+    params = Model(cfg).init(seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator().manual_seed(13))
+    logits, cache = prefill(params, {"tokens": tokens}, seq_cap=shape.seq_len)
+    ids = logits.argmax(dim=-1)[:, None]
+    step_logits, cache = decode(params, cache, ids, s)
+    del cache
+    whole, _ = prefill(params, {"tokens": torch.cat([tokens, ids.cpu()], dim=1)}, seq_cap=shape.seq_len)
+    vocab = cfg.vocab_size  # the head's padding columns, where there are any, hold -2**30 in both
+    err = _rel_err(step_logits[..., :vocab], whole[..., :vocab].float().cpu(), "decode logits")
+    row = {"phase": "long_shapes", "case": "decode_against_prefill_32k", "arch": cfg.name, "layers": cfg.num_layers,
+           "rows": 2, "prompt": s, "cache": shape.seq_len, "max_rel_err": err,
+           "same_greedy_ids": bool((step_logits.argmax(-1) == whole.argmax(-1)).all()),
+           "bar": f"max |decode - prefill of S+1| <= {MODEL_REL} * max |prefill|, logits[..., :{vocab}]",
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    if err > MODEL_REL:
+        raise AssertionError(f"long_shapes decode_32k: the decode step is {err:.3g} from the prefill of S+1")
+
+
+def long_state_check(dev: torch.device, dtype: str) -> None:
+    """Mamba2-780m at full width, LONG_CHECK_LAYERS layers, in ``dtype``,
+    through ``long_500k``'s steps: a prefill of 524,288 tokens (chunk 256)
+    against a prefill of the first 524,224 (chunk 64, ``scan_chunk``'s pick
+    there) followed by 64 decode steps on the rest: the last logits over the
+    real vocabulary (the head's padding columns hold -2**30 in both) and
+    every layer's state ``ssm`` within MODEL_REL (bf16) or TRAIN_F32_REL
+    (f32, TF32 off) of their largest value; the conv window's difference is
+    printed beside them.  The f32 run is the witness that the bf16 gap is
+    rounding and not a fault of either chunk's path or of the decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import Model
+    from repro_torch.models.ssm import scan_chunk
+
+    cfg = dataclasses.replace(get_config("mamba2-780m"), num_layers=LONG_CHECK_LAYERS, dtype=dtype)
+    bar = TRAIN_F32_REL if dtype == "float32" else MODEL_REL
+    shape, prefill, decode = long_steps(cfg, "long_500k", 1, dev)
+    l, part, vocab = shape.seq_len, shape.seq_len - LONG_TAIL, cfg.vocab_size
+    chunks = (scan_chunk(cfg, l), scan_chunk(cfg, part))
+    t0 = time.monotonic()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = Model(cfg).init(seed=0, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, l), generator=torch.Generator().manual_seed(14))
+        ssd_scan.ssd_scan.launches = 0
+        want_logits, want_cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, {"tokens": tokens[:, :part]})
+        launches = ssd_scan.ssd_scan.launches
+        for t in range(part, l):
+            logits, cache = decode(params, cache, tokens[:, t:t + 1], t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {"logits": _rel_err(logits[..., :vocab], want_logits[..., :vocab].float().cpu(), "logits"),
+            **cache_errors(cache, want_cache, ("ssm", "conv"))}
+    row = {"phase": "long_shapes", "case": f"state_over_long_500k_{dtype}", "arch": cfg.name, "dtype": dtype,
+           "layers": cfg.num_layers, "tokens": l, "chunks": {"prefill": chunks[0], "prefill_then_decode": chunks[1]},
+           "decode_steps": l - part, "k4_launches": launches, "max_rel_err": errs,
+           "bar": f"logits[..., :{vocab}] and each layer's ssm: max |diff| <= {bar} * max |prefill's|; conv printed",
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    if chunks[0] != cfg.ssd.chunk or chunks[1] == chunks[0] or launches != 2 * cfg.num_layers:
+        raise AssertionError(f"long_shapes state check: chunks {chunks}, {launches} K4 launches")
+    if errs["logits"] > bar or errs["ssm"] > bar:
+        raise AssertionError(f"long_shapes {dtype} state check over the bar: {errs}")
+
+
+def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
+    """The reference's long shapes at full width and depth on one card
+    (``long_shapes``): K3 at ``prefill_32k``'s attention and K4 at
+    ``long_500k``'s scan against their plain versions; Qwen3-0.6B at
+    ``prefill_32k`` (4 rows of 32,768) and ``decode_32k`` (8 rows: a
+    prefill of 32,704 tokens into the 32,768-slot cache, then 64 greedy
+    decode steps to its last slot); the decode step after a 32k prompt
+    against the prefill of one token more; Mamba2-780m at ``long_500k`` (a
+    prefill of 524,288 tokens, then 16 decode steps from its state); and
+    the state after 524,288 tokens by one chunk against another and the
+    recurrent decode, in bf16 and, as its witness, in f32."""
+    for case in (lambda: long_k3(dev, summary, card), lambda: long_k4(dev, summary, card),
+                 lambda: long_run(dev, summary, "qwen3-0.6b", "prefill_32k", 0, 0, 2,
+                                  "flash_attention", "fa_tc_bf16", "prefill"),
+                 lambda: long_run(dev, summary, "qwen3-0.6b", "decode_32k", LONG_TAIL, LONG_TAIL, 1,
+                                  "flash_attention", "fa_tc_bf16", "decode"),
+                 lambda: long_decode_check(dev),
+                 lambda: long_run(dev, summary, "mamba2-780m", "long_500k", 0, LONG_500K_STEPS, 1,
+                                  "ssd_scan", "ssd_tc_bf16", "prefill"),
+                 lambda: long_state_check(dev, "bfloat16"), lambda: long_state_check(dev, "float32")):
+        case()
+        release_card()
 
 
 def _kernel_launches() -> dict:
@@ -1816,9 +2175,27 @@ def train_route_differences(cfg, want: list, got: list) -> list[dict]:
     return out
 
 
+def leaf_errors(dev: torch.device, name: str, g, want, w32, g32) -> dict:
+    """One gradient leaf of ``train_check``, compared on the card (a CPU pass
+    over DeepSeek's 3.12 B took 61-79 s): the card's bf16 leaf ``g`` against
+    the CPU's bf16 ``want`` (``rel_err``) and f32 ``w32`` (``vs_cpu_f32``),
+    ``want`` against ``w32`` (``cpu_bf16_vs_f32``) and the card's f32 leaf
+    ``g32`` against ``w32`` (``f32``); each the largest difference over the
+    largest |value| of the second, as ``_rel_err``."""
+    if not g.shape == want.shape == w32.shape == g32.shape:
+        raise AssertionError(f"{name}: shapes {[tuple(t.shape) for t in (g, want, w32, g32)]}")
+    g, want, w32, g32 = (t.to(dev).float() for t in (g, want, w32, g32))
+    if not (torch.isfinite(g).all() and torch.isfinite(g32).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    top, top32 = want.abs().max(), w32.abs().max()
+    errs = torch.stack([(g - want).abs().max() / top, (g - w32).abs().max() / top32,
+                        (want - w32).abs().max() / top32, (g32 - w32).abs().max() / top32]).tolist()
+    return dict(zip(("rel_err", "vs_cpu_f32", "cpu_bf16_vs_f32", "f32"), errs))
+
+
 def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
-                      seq: int = CHECK_SEQ, rows: int = CHECK_BATCH) -> None:
-    """One training step of ``arch`` at full width, 2 layers (and the MTP
+                      seq: int = CHECK_SEQ, rows: int = CHECK_BATCH, layers: int = 2) -> None:
+    """One training step of ``arch`` at full width, ``layers`` layers (and the MTP
     block where the config has one), on the card against the same step on
     the CPU from the same parameters (``Model.init(0)`` on the CPU, copied;
     with ``conditioned`` through ``condition_attention`` first) and one
@@ -1854,34 +2231,43 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("train_check needs TF32 off: torch.backends.cuda.matmul.allow_tf32 is set")
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     f32 = dataclasses.replace(cfg, dtype="float32")
     t0 = time.monotonic()
+    marks = [t0]
+
+    def mark():
+        marks.append(time.monotonic())
+
     host = Model(cfg).init(seed=0, device="cpu")
     if conditioned:
         condition_attention(cfg, host)
     batch = train_batch(cfg, rows, seq, seed=6)
     has_moe = moe_layers(cfg) > 0
+    mark()
     cpu_m, cpu_g, cpu_r = one_train_step(cfg, torch.device("cpu"), tree_map(lambda t: t.clone(), host), batch)
     routes = cpu_r.idx if has_moe else None  # the CPU bf16 step's expert choices, replayed by the other three
+    mark()
     cpu32_m, f32_g, cpu32_r = one_train_step(
         f32, torch.device("cpu"), tree_map(lambda t: t.to(torch.float32, copy=True), host), batch, routes)
+    mark()
     cpu_s = time.monotonic() - t0
     _zero_kernel_launches()
     card_m, card_g, card_r = one_train_step(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), host), batch, routes)
+    mark()
     card32_m, card32_g, card32_r = one_train_step(
         f32, dev, tree_map(lambda t: t.to(dev, torch.float32, copy=True), host), batch, routes)
     sync(dev)
+    mark()
     launches = _kernel_launches()
+    release_card()  # what the card steps left in reference cycles, before the leaves come over
     names = [k for k, _ in tree_items(host)]
-    leaves, over = {}, {}
-    for name, g, want, w32 in zip(names, card_g, cpu_g, f32_g):
-        own = float((want.float() - w32).abs().max() / w32.abs().max())
-        leaves[name] = {"rel_err": _rel_err(g, want, name), "vs_cpu_f32": _rel_err(g, w32, name),
-                        "cpu_bf16_vs_f32": own}
-        if leaves[name]["vs_cpu_f32"] > max(MODEL_REL, OWN_ROUNDING * own):
+    leaves, leaves32, over = {}, {}, {}
+    for name, *four in zip(names, card_g, cpu_g, f32_g, card32_g):
+        errs = leaf_errors(dev, name, *four)
+        leaves[name], leaves32[name] = {k: errs[k] for k in ("rel_err", "vs_cpu_f32", "cpu_bf16_vs_f32")}, errs["f32"]
+        if leaves[name]["vs_cpu_f32"] > max(MODEL_REL, OWN_ROUNDING * leaves[name]["cpu_bf16_vs_f32"]):
             over[name] = leaves[name]
-    leaves32 = {name: _rel_err(g, want, name) for name, g, want in zip(names, card32_g, f32_g)}
     mtp = ("loss_mtp",) if cfg.mtp else ()
     scalars = {k: abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm", *mtp)}
     scalar_names = ("loss", "grad_norm", *mtp, *(("aux",) if has_moe else ()))
@@ -1916,7 +2302,11 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
                   "rel_err": scalars32, "max_leaf_rel_err": max(leaves32.values()), "leaves": leaves32,
                   "bar": f"loss, grad_norm (loss_mtp, aux) and every leaf: card vs cpu <= {TRAIN_F32_REL} of "
                   "the largest |cpu value|, TF32 off"},
-          **moe_row, "kernel_launches": launches, "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0})
+          **moe_row, "kernel_launches": launches, "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0,
+          "seconds_by_part": dict(zip(("cpu_init", "cpu_bf16_step", "cpu_f32_step", "card_bf16_step",
+                                       "card_f32_step", "compare"),
+                                      np.diff([*marks, time.monotonic()]).tolist())),
+          "parts_note": "each step's seconds include copying the parameters over and the gradients to the host"})
     if any(v > MODEL_REL for v in scalars.values()) or any(v > TRAIN_F32_REL for v in scalars32.values()) or over:
         raise AssertionError(f"train_check {arch} over the bar: {scalars} {scalars32} {over}")
     if any(launches.values()):
@@ -2217,8 +2607,8 @@ def phase_example_serve(dev: torch.device, summary: dict) -> None:
 
 def phase_example_train(dev: torch.device) -> None:
     """(d) The train_lm twin at its defaults on the card (qwen3 widened to
-    d_model 512, 8 layers, vocab 50304; seq 128, batch 8, 300 steps, a
-    checkpoint every 100) into a temporary directory, then a second run on
+    d_model 512, 8 layers, vocab 50304; seq 128, batch 8, a checkpoint
+    every 100) for TRAIN_LM_FIRST_STEPS steps into a temporary directory, then a second run on
     the same directory, which must start at the saved step with the
     checkpoint's parameters bit for bit, and train TRAIN_LM_RESUMED_STEPS
     more."""
@@ -2229,7 +2619,7 @@ def phase_example_train(dev: torch.device) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as d:
         argv = ["--ckpt-dir", d, "--device", str(dev)]
         rows = []
-        for call, args in (("first", example.parse_args(argv)),
+        for call, args in (("first", example.parse_args([*argv, "--steps", str(TRAIN_LM_FIRST_STEPS)])),
                            ("second", example.parse_args([*argv, "--steps", str(TRAIN_LM_RESUMED_STEPS)]))):
             (trainer, pipe, sampler), printed = quiet(example.build, args)
             start = trainer.step
@@ -2301,12 +2691,12 @@ def phase_oracles(dev: torch.device) -> None:
 def phase_examples(dev: torch.device, summary: dict) -> None:
     """The four twins of examples/ on the card, (a)-(d), and (e) K3 and K4
     against the ``ref.py`` oracles (K1 and K2 are held to theirs in (b))."""
-    phase_example_quickstart(dev)
-    phase_example_imagenet(dev, summary)
-    phase_example_serve(dev, summary)
-    phase_example_train(dev)
+    timed("example_quickstart", phase_example_quickstart, dev)
+    timed("example_imagenet", phase_example_imagenet, dev, summary)
+    timed("example_serve", phase_example_serve, dev, summary)
+    timed("example_train", phase_example_train, dev)
     release_card()
-    phase_oracles(dev)
+    timed("oracles", phase_oracles, dev)
 
 
 def kernel_summary() -> dict:
@@ -2352,23 +2742,31 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         smi = phase_device()
         phase_build()
-        phase_kernels(dev, summary, smi)
-        phase_flash(dev, summary, smi)
-        phase_ssd(dev, summary, smi)
-        phase_model_check(dev, "qwen3-0.6b", 256)
-        phase_model_check(dev, "qwen3-0.6b", 20, "prefill_ragged")  # padded to 64 for K3
-        phase_model_check(dev, "qwen3-0.6b", 256, "prefill_restart", restart=True)  # K3's position route
-        phase_model_check(dev, "mamba2-780m", 512)  # two chunks of 256
-        phase_model_check(dev, "mamba2-780m", 20, "prefill_ragged_ssd")  # one chunk of 20 for K4
-        phase_moe(dev, smi)
-        phase_model_check(dev, "granite-moe-1b-a400m", 256, dtype="float32", conditioned=True)
-        phase_model_check(dev, "granite-moe-1b-a400m", 256, conditioned=True)
-        phase_model_check(dev, "jamba-1.5-large-398b", 128)  # 1 K3 and 1 K4 launch; 23.8 GB of weights
-        phase_model_check(dev, "deepseek-v3-671b", 256, dtype="float32")  # 2 dense MLA layers; 14.8 GB
+        timed("kernels", phase_kernels, dev, summary, smi)
+        timed("flash", phase_flash, dev, summary, smi)
+        timed("ssd", phase_ssd, dev, summary, smi)
+        timed("model_check qwen3-0.6b 256", phase_model_check, dev, "qwen3-0.6b", 256)
+        timed("model_check qwen3-0.6b 20 prefill_ragged",
+              phase_model_check, dev, "qwen3-0.6b", 20, "prefill_ragged")  # padded to 64 for K3
+        timed("model_check qwen3-0.6b 256 prefill_restart restart=True",
+              phase_model_check, dev, "qwen3-0.6b", 256, "prefill_restart", restart=True)  # K3's position route
+        timed("model_check mamba2-780m 512", phase_model_check, dev, "mamba2-780m", 512)  # two chunks of 256
+        timed("model_check mamba2-780m 20 prefill_ragged_ssd",
+              phase_model_check, dev, "mamba2-780m", 20, "prefill_ragged_ssd")  # one chunk of 20 for K4
+        timed("moe", phase_moe, dev, smi)
+        timed("model_check granite-moe-1b-a400m 256 dtype=float32 conditioned=True",
+              phase_model_check, dev, "granite-moe-1b-a400m", 256, dtype="float32", conditioned=True)
+        timed("model_check granite-moe-1b-a400m 256 conditioned=True",
+              phase_model_check, dev, "granite-moe-1b-a400m", 256, conditioned=True)
+        timed("model_check jamba-1.5-large-398b 128",
+              phase_model_check, dev, "jamba-1.5-large-398b", 128)  # 1 K3 and 1 K4 launch; 23.8 GB of weights
+        timed("model_check deepseek-v3-671b 256 dtype=float32",
+              phase_model_check, dev, "deepseek-v3-671b", 256, dtype="float32")  # 2 dense MLA layers; 14.8 GB
         release_card()
         # 3 dense layers, 1 MoE layer; 31.6 GB.  On the seed-0 weights the bf16 outputs sit 4.2-5.1e-2
         # from the CPU's on an H100: w_uq/w_uk drawn at fan-in over the heads make attention peaked
-        phase_model_check(dev, "deepseek-v3-671b", 128, layers=4, conditioned=True)
+        timed("model_check deepseek-v3-671b 128 layers=4 conditioned=True",
+              phase_model_check, dev, "deepseek-v3-671b", 128, layers=4, conditioned=True)
         release_card()
         # MusicGen: MHA, 24 heads of 64 (K3 at kv groups of 1), LayerNorm and GELU, four codebooks.
         # InternVL2: 256 vision rows, then 256 tokens; the head masks 119 padding columns of 92,672.
@@ -2376,38 +2774,52 @@ def main() -> int:
         # largest CPU value (logits), bf16 2.31e-2 / 5.67e-2 and 0.177 / 0.125 (prefill / decode
         # logits): wq/wk drawn at fan-in over the heads make attention peaked
         for arch, seq in (("musicgen-medium", 256), ("internvl2-2b", 512)):
-            phase_model_check(dev, arch, seq, dtype="float32", conditioned=True)
-            phase_model_check(dev, arch, seq, conditioned=True)
+            timed(f"model_check {arch} {seq} dtype=float32 conditioned=True",
+                  phase_model_check, dev, arch, seq, dtype="float32", conditioned=True)
+            timed(f"model_check {arch} {seq} conditioned=True", phase_model_check, dev, arch, seq, conditioned=True)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             t0 = time.monotonic()
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
             emit({"phase": "dataset", "frames": FRAMES, "hw": list(FRAME), "seconds": time.monotonic() - t0})
-            phase_main(ds, dev, summary)
-            phase_example(ds, dev, summary)
-            phase_shards(ds, pathlib.Path(d), dev, summary)
-        phase_serve(dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
-        phase_serve(dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
-        phase_serve(dev, summary, "granite-moe-1b-a400m", "flash_attention", "fa_tc_bf16")
+            timed("main", phase_main, ds, dev, summary)
+            timed("example", phase_example, ds, dev, summary)
+            timed("shards", phase_shards, ds, pathlib.Path(d), dev, summary)
+        timed("serve qwen3-0.6b flash_attention fa_tc_bf16",
+              phase_serve, dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
+        timed("serve mamba2-780m ssd_scan ssd_tc_bf16",
+              phase_serve, dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
+        timed("serve granite-moe-1b-a400m flash_attention fa_tc_bf16",
+              phase_serve, dev, summary, "granite-moe-1b-a400m", "flash_attention", "fa_tc_bf16")
         release_card()
-        phase_serve(dev, summary, "deepseek-v3-671b", "flash_attention", "fa_tc_bf16", layers=4)
+        timed("serve deepseek-v3-671b flash_attention fa_tc_bf16 layers=4",
+              phase_serve, dev, summary, "deepseek-v3-671b", "flash_attention", "fa_tc_bf16", layers=4)
         release_card()
-        phase_serve(dev, summary, "musicgen-medium", "flash_attention", "fa_tc_bf16")  # through the step builders
-        phase_serve(dev, summary, "internvl2-2b", "flash_attention", "fa_tc_bf16")
+        timed("serve musicgen-medium flash_attention fa_tc_bf16",
+              phase_serve, dev, summary, "musicgen-medium", "flash_attention", "fa_tc_bf16")  # through the step builders
+        timed("serve internvl2-2b flash_attention fa_tc_bf16",
+              phase_serve, dev, summary, "internvl2-2b", "flash_attention", "fa_tc_bf16")
         release_card()
-        phase_train_check(dev, "qwen3-0.6b")
-        phase_train_check(dev, "mamba2-780m")
-        phase_train_check(dev, "granite-moe-1b-a400m", conditioned=True)
-        phase_train_check(dev, "deepseek-v3-671b", seq=DEEPSEEK_CHECK_SEQ, rows=1)  # 2 dense layers + MTP, 3.71 B
+        timed("long_shapes", phase_long_shapes, dev, summary, smi)
+        timed("train_check qwen3-0.6b", phase_train_check, dev, "qwen3-0.6b")
+        timed("train_check mamba2-780m", phase_train_check, dev, "mamba2-780m")
+        timed("train_check granite-moe-1b-a400m conditioned=True",
+              phase_train_check, dev, "granite-moe-1b-a400m", conditioned=True)
+        timed(f"train_check deepseek-v3-671b seq={DEEPSEEK_CHECK_SEQ} rows=1 layers={DEEPSEEK_CHECK_LAYERS}",
+              phase_train_check, dev, "deepseek-v3-671b", seq=DEEPSEEK_CHECK_SEQ, rows=1,
+              layers=DEEPSEEK_CHECK_LAYERS)  # a dense MLA layer + MTP
         # on the seed-0 weights an H100's f32 leaves read 1.20e-3 (MusicGen) and 6.85e-3 (InternVL2)
-        phase_train_check(dev, "musicgen-medium", conditioned=True)
-        phase_train_check(dev, "internvl2-2b", conditioned=True)
+        timed("train_check musicgen-medium conditioned=True",
+              phase_train_check, dev, "musicgen-medium", conditioned=True)
+        timed("train_check internvl2-2b conditioned=True", phase_train_check, dev, "internvl2-2b", conditioned=True)
         release_card()
         # Qwen3's and Mamba2's steps were traced before (PERF.md §5); the time goes to DeepSeek's checks
-        phase_train(dev, "qwen3-0.6b", TRAIN_STEPS, resume=True, trace=False)
-        phase_train(dev, "mamba2-780m", 2, resume=False, trace=False)
-        phase_train(dev, "granite-moe-1b-a400m", 2, resume=False)
+        timed(f"train qwen3-0.6b {TRAIN_STEPS} resume=True trace=False",
+              phase_train, dev, "qwen3-0.6b", TRAIN_STEPS, resume=True, trace=False)
+        timed("train mamba2-780m 2 resume=False trace=False",
+              phase_train, dev, "mamba2-780m", 2, resume=False, trace=False)
+        timed("train granite-moe-1b-a400m 2 resume=False", phase_train, dev, "granite-moe-1b-a400m", 2, resume=False)
         release_card()
-        phase_examples(dev, summary)
+        timed("examples", phase_examples, dev, summary)
     except Exception:
         traceback.print_exc()
         return 1

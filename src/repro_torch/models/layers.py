@@ -8,6 +8,8 @@ tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -91,14 +93,30 @@ def apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    """``1 / theta ** (arange(0, hd, 2) / hd)`` in f32, the exponent rounded
+    to f32 as in the reference and the power and reciprocal taken in f64,
+    then rounded once: the value the reference's compiled step computes.
+    Torch's f32 power leaves a third of the frequencies an ulp off, and an
+    angle ``position * freq`` drifts from the reference's in proportion to
+    the position (k of a 4,096-token prompt 2.5e-5 of its largest value)."""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return (1.0 / theta ** e.double()).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_freqs`` made once per (head_dim, theta, device), not on every
+    layer's q and k of every step; a normal tensor even when first asked
+    for under ``torch.inference_mode``."""
+    with torch.inference_mode(False):
+        return rope_freqs(head_dim, theta, device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S).  The two
     rotated halves are split, not interleaved pairs; computed in f32."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    freqs = _rope_freqs_on(hd, theta, x.device)  # (hd/2,)
     angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
