@@ -58,14 +58,19 @@ and a copy of the same bytes), then runs
     neither), K3 in every prefill; each checked before at 2 layers against
     the CPU in f32 and bf16;
   - the reference's long shapes through ``build_step`` at full width and
-    depth (``long_shapes``): K3 at ``prefill_32k``'s attention and K4 at
+    depth (``long_shapes``): K3 at ``prefill_32k``'s attention of Qwen3,
+    DeepSeek-V3 (MLA, head dim 192), Yi-6B and OLMo-1B and K4 at
     ``long_500k``'s scan against their plain versions; Qwen3-0.6B at
     ``prefill_32k`` (4 rows of 32,768) and ``decode_32k`` (8 rows, a
     prefill of 32,704 tokens, then 64 greedy steps to the cache's last
     slot); the decode step after a 32k prompt against the prefill of one
-    token more; Mamba2-780m at ``long_500k`` (524,288 tokens, then 16
-    decode steps); the state after 524,288 tokens against a prefill in
-    another chunk and 64 decode steps;
+    token more; DeepSeek-V3 in 4 layers at ``prefill_32k`` and
+    ``decode_32k`` (one row: 64 absorbed steps over the 32,768-slot latent
+    cache) and its decode step against the prefill of one token more in its
+    3 dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows);
+    Mamba2-780m at ``long_500k`` (524,288 tokens, then 16 decode steps);
+    the state after 524,288 tokens against a prefill in another chunk and
+    64 decode steps;
   - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M,
     DeepSeek-V3, MusicGen-medium and InternVL2-2B at full width, cut to 2
     layers (DeepSeek to 1, its MTP block beside it), on the card against the same step on the CPU, in f32
@@ -160,13 +165,27 @@ SHARD_CACHE_BYTES = 110_000_000  # about two shards: every epoch over HTTP evict
 LM_DOCS, LM_BATCHES = 4096, 3  # shards phase (f): token documents in 4 shards; batches held to the CPU run
 MP_WORKERS = 4  # shards phase (g): the process-pool baseline's workers
 CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check prompt
-# long_shapes: the reference's SHAPES at full width and depth; rows cut from 32 and 128 for the
-# time limit and the card's 80 GB (a decode_32k row of Qwen3-0.6B holds a 3.76 GB cache)
-LONG_ROWS = {"prefill_32k": 4, "decode_32k": 8, "long_500k": 1}
+# long_shapes: the reference's SHAPES at full width and depth (DeepSeek-V3 in LONG_MLA_LAYERS), rows by
+# (arch, shape), cut from the shapes' 32 and 128 for the time limit and the card's 80 GB: a decode_32k
+# row of Qwen3-0.6B holds a 3.76 GB cache.  DeepSeek-V3's 4 layers hold 30.3 GB of bf16 weights; its
+# prefill, a row of 32,768 tokens, holds about 7 GB of intermediates in an MLA layer (q, k, v, the padded
+# v and their copies for K3) and about 30 GB in the MoE layer (apply_moe keeps the dispatched tokens and
+# the experts' outputs, 4.7 GB each at 1,280 slots an expert, and combines 262,144 pairs of 7,168 values
+# in f32, 7.5 GB twice): one row reckons at about 62 GB, two at about 93 GB
+LONG_ROWS = {("qwen3-0.6b", "prefill_32k"): 4, ("qwen3-0.6b", "decode_32k"): 8, ("mamba2-780m", "long_500k"): 1,
+             ("deepseek-v3-671b", "prefill_32k"): 1, ("deepseek-v3-671b", "decode_32k"): 1,
+             ("yi-6b", "prefill_32k"): 2, ("olmo-1b", "prefill_32k"): 2}
+LONG_MLA_LAYERS = 4  # DeepSeek-V3 as serve runs it: 3 dense MLA layers, then one of 256 experts
+LONG_MLA_CHECK_LAYERS = 3  # its decode-against-prefill check: the dense layers alone (first_k_dense)
+# long_k3: arch -> (case, the kernels line's key, the rows and q heads held to the plain version, None: all)
+LONG_K3 = {"qwen3-0.6b": ("k3_prefill_32k", "prefill_32k", None, None),
+           "deepseek-v3-671b": ("k3_mla_prefill_32k", "mla_prefill_32k", 1, 32),
+           "yi-6b": ("k3_yi_prefill_32k", "yi_prefill_32k", 1, None),
+           "olmo-1b": ("k3_olmo_prefill_32k", "olmo_prefill_32k", 1, None)}
 LONG_TAIL = 64  # decode_32k decodes the cache's last 64 slots; the checks decode 64 tokens after a prefill
 LONG_500K_STEPS = 16  # long_500k's decode steps from the prefill's state
 LONG_CHECK_LAYERS = 4  # the decode-against-prefill and state checks: full width, 4 layers
-LONG_TIMED_RUNS = 5  # K3/K4 at the long shapes: each launch is 50-160 ms
+LONG_TIMED_RUNS = 5  # K3/K4 at the long shapes: each launch is 35-215 ms
 # Yi-6B and OLMo-1B have no qk_norm: on the seed-0 weights an H100 read Yi f32 1.52e-4 / 3.90e-4 and
 # bf16 8.7e-3 / 0.127 (prefill / decode logits), OLMo bf16 5.95e-2 / 0.225, over their bars, and OLMo f32
 # 4.8e-5 / 7.4e-5, within; the checks over the bar run on condition_attention's weights
@@ -1062,12 +1081,27 @@ def position_pairs(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> int:
     return int((q_pos[:, :, None] >= kv_pos[:, None, :]).sum())
 
 
+LIBRARY_ATTENTION = ("torch.nn.functional.scaled_dot_product_attention(is_causal=True) on its fused backends, "
+                     "enable_gqa where k has fewer heads")
+
+
 def library_attention(q, k, v, causal: bool):
     """One PyTorch call for the same function (the yardstick; never on the
     port's path).  SDPA's causal mask is top-left aligned, so it is timed
-    only where sq == skv."""
+    only where sq == skv.  SDPA may take only its fused backends (flash,
+    memory-efficient, cuDNN): a shape they refuse raises rather than fall
+    back to the math backend, whose scores at 32k keys would not fit the
+    card."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+    gqa = q.shape[1] != k.shape[1]
+
+    def call():
+        with sdpa_kernel(backends):
+            return sdpa(q, k, v, is_causal=causal, enable_gqa=gqa)
+    return call
 
 
 def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
@@ -1169,10 +1203,10 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
             if name == "mla":  # SDPA takes v's own 128 dims; its default scale is 1/sqrt(192), as K3's
                 v_lib = v[..., :MLA_V_DIM].contiguous()
                 row["library_ms"] = time_ms(library_attention(q, k, v_lib, causal), flush)
-                row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True) on v (8,128,512,128)"
+                row["library"] = f"{LIBRARY_ATTENTION}, on v (8,128,512,128)"
             else:
                 row["library_ms"] = time_ms(library_attention(q, k, v, causal), flush)
-                row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+                row["library"] = LIBRARY_ATTENTION
             row["over_library"] = row["ms"] / row["library_ms"]
             row["over_bound"] = row["ms"] / row["bound_ms"]
         if name in ("granite", "musicgen", "yi", "olmo", "mla"):
@@ -1775,44 +1809,70 @@ def long_steps(cfg, name: str, rows: int, dev: torch.device):
     return shape, prefill.fn, decode.fn
 
 
-def long_k3(dev: torch.device, summary: dict, card: str) -> None:
-    """K3 at ``prefill_32k``'s attention, q (4,16,32768,128) and k/v
-    (4,8,32768,128) bf16, seeded on the card, causal, tile 128 (the tile
-    ``_causal_flash`` picks): within FA_TOL of its plain version, timed
-    beside it and beside SDPA."""
+def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
+    """K3 at ``prefill_32k``'s attention of ``arch`` (``LONG_K3[arch]``),
+    bf16, seeded on the card, causal, tile 128 (the tile ``_causal_flash``
+    picks), at the rows ``LONG_ROWS`` gives its ``prefill_32k``:
+    Qwen3-0.6B's q (4,16,32768,128) against k/v (4,8,32768,128);
+    DeepSeek-V3's MLA, q/k (1,128,32768,192) and v zero-padded from 128 to
+    192 as ``mla_prefill`` pads it; Yi-6B's q (2,32,32768,128) against k/v
+    (2,4,32768,128); OLMo-1B's (2,16,32768,128), MHA.  Held to FA_TOL of
+    its plain version (on the rows and q heads ``LONG_K3`` names, with
+    their kv heads), timed beside SDPA and its bound.  The bound counts the
+    real work, 2 * (qk dims + v dims) operations a causal pair a head, so
+    MLA's padding of v shows as a gap; MLA is also timed at ``block_k`` 64,
+    its spill-free instance (a reading: the model keeps tile 128)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import flash_attention as fa
 
-    cfg = get_config("qwen3-0.6b")
-    b, s = LONG_ROWS["prefill_32k"], SHAPES["prefill_32k"].seq_len
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    case, key, plain_rows, plain_heads = LONG_K3[arch]
+    cfg = get_config(arch)
+    b, s = LONG_ROWS[(arch, "prefill_32k")], SHAPES["prefill_32k"].seq_len
+    h, hkv, hd, vd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.resolved_head_dim
+    if cfg.mla is not None:  # the 128 heads as kv groups of 1, q and k of nope + rope dims
+        hkv, hd, vd = h, cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
     gen = torch.Generator(device=dev).manual_seed(10)
     q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
                for shape in ((b, h, s, hd), (b, hkv, s, hd), (b, hkv, s, hd)))
+    v[..., vd:] = 0  # mla_prefill's zero padding of v; nothing elsewhere
     kw = {"causal": True, "block_q": 128, "block_k": 128}
     got = fa.flash_attention(q, k, v, **kw)
-    want = fa.flash_attention_plain(q, k, v, **kw)
+    rows, heads = plain_rows or b, plain_heads or h
+    group = h // hkv
+    want = fa.flash_attention_plain(q[:rows, :heads], k[:rows, :heads // group], v[:rows, :heads // group], **kw)
     sync(dev)
-    row = {"phase": "long_shapes", "case": "k3_prefill_32k", "kernel": "flash_attention", "q": [b, h, s, hd],
-           "kv": [b, hkv, s, hd], "dtype": "torch.bfloat16", "block_k": 128,
-           "route": fa.kernel_route(torch.bfloat16, hd, 128), **within_tol(got, want)}
+    row = {"phase": "long_shapes", "case": case, "kernel": "flash_attention", "arch": cfg.name, "q": [b, h, s, hd],
+           "kv": [b, hkv, s, hd], "v_dims": vd, "dtype": "torch.bfloat16", "block_k": 128,
+           "route": fa.kernel_route(torch.bfloat16, hd, 128),
+           "held_to_plain": f"rows 0..{rows - 1} of {b}, q heads 0..{heads - 1} of {h} (every element there)",
+           **within_tol(got[:rows, :heads], want)}
     del want
     if row["over_bar"]:
         emit(row)
-        raise AssertionError(f"flash_attention at prefill_32k: {row['over_bar']} elements over the bar")
+        raise AssertionError(f"flash_attention at {cfg.name}'s prefill_32k: {row['over_bar']} elements over the bar")
+    if got[..., vd:].any():
+        raise AssertionError(f"flash_attention at {cfg.name}'s prefill_32k: the zero-padded v's columns are not zero")
+    del got
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush, runs=LONG_TIMED_RUNS)
-    row["library_ms"] = time_ms(library_attention(q, k, v, True), flush, runs=LONG_TIMED_RUNS)
-    row["library"] = "torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
-    row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush, runs=2, warm=0)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    row.update(bound(nbytes, 4 * hd * causal_pairs(s, s, True) * b * h, BF16_TC_OPS_PER_S, card))
+    v_lib = v[..., :vd].contiguous() if vd < hd else v
+    row["library_ms"] = time_ms(library_attention(q, k, v_lib, True), flush, runs=LONG_TIMED_RUNS)
+    row["library"] = f"{LIBRARY_ATTENTION}, on v {list(v_lib.shape)}"
+    if arch == "qwen3-0.6b":
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush, runs=2, warm=0)
+    if cfg.mla is not None:
+        row["block_k64_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, block_q=64, block_k=64),
+                                      flush, runs=LONG_TIMED_RUNS)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v_lib)) + q[..., :vd].numel() * q.element_size()
+    row.update(bound(nbytes, 2 * (hd + vd) * causal_pairs(s, s, True) * b * h, BF16_TC_OPS_PER_S, card))
     row["over_bound"], row["over_library"] = row["ms"] / row["bound_ms"], row["ms"] / row["library_ms"]
     entry = summary["flash_attention"]
     entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
-    entry["prefill_32k"] = {key: row[key] for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")}
+    entry[key] = {name: row[name] for name in (
+        "ms", "plain_ms", "block_k64_ms", "library_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")
+        if name in row}
+    entry[key]["launches"] = 0  # long_run adds the path's
     emit(row)
 
 
@@ -1829,7 +1889,8 @@ def long_k4(dev: torch.device, summary: dict, card: str) -> None:
 
     cfg = get_config("mamba2-780m")
     ssd, l = cfg.ssd, SHAPES["long_500k"].seq_len
-    shape = (LONG_ROWS["long_500k"], l, ssd.n_heads(cfg.d_model), ssd.head_dim, ssd.n_groups, ssd.d_state)
+    rows = LONG_ROWS[("mamba2-780m", "long_500k")]
+    shape = (rows, l, ssd.n_heads(cfg.d_model), ssd.head_dim, ssd.n_groups, ssd.d_state)
     chunk = scan_chunk(cfg, l)
     args = ssd_inputs(torch.Generator(device=dev).manual_seed(11), *shape, torch.bfloat16, dev)
     y, h_final = ks.ssd_scan(*args, chunk=chunk)
@@ -1863,13 +1924,15 @@ def long_k4(dev: torch.device, summary: dict, card: str) -> None:
 
 
 def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, steps: int,
-             prefills: int, kernel: str, kernel_symbol: str, trace: str) -> None:
-    """``arch`` at full width and depth through ``build_step`` at the
-    reference's shape ``name`` (``LONG_ROWS[name]`` rows, the shape's
-    sequence as the cache's capacity): ``prefills`` seeded prompts of the
-    shape's sequence less ``room`` tokens, then ``steps`` greedy decode
-    steps after the last one.  Each prefill must launch ``kernel`` once a
-    layer and each decode step none; every logit must be finite.  Readings: wall and host enqueue
+             prefills: int, kernel: str, kernel_symbol: str, trace: str, layers: int | None = None) -> None:
+    """``arch`` at full width and depth (or cut to ``layers``) through
+    ``build_step`` at the reference's shape ``name`` (``LONG_ROWS[(arch,
+    name)]`` rows, the shape's sequence as the cache's capacity):
+    ``prefills`` seeded prompts of the shape's sequence less ``room``
+    tokens, then ``steps`` greedy decode steps after the last one.  Each
+    prefill must launch ``kernel`` once an attention (or MLA) or SSD layer
+    and each decode step none; every logit must be finite.  Readings: wall
+    and host enqueue
     ms of each prefill and step, the card's busy ms of one more prefill or
     decode step under the profiler (``trace``) with the kernel's share,
     the peak of ``max_memory_allocated`` beside the bytes ``abstract_params``
@@ -1880,7 +1943,9 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
 
     wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
     cfg = get_config(arch)
-    rows = LONG_ROWS[name]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    rows = LONG_ROWS[(arch, name)]
     shape, prefill, decode = long_steps(cfg, name, rows, dev)
     prompt = shape.seq_len - room
     t0 = time.monotonic()
@@ -1943,8 +2008,9 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
                greedy_ids={"prefill": ids["prefill"], "decode_first_row": [i[0] for i in ids["decode"]]},
                all_logits_finite=all(finite), seconds=time.monotonic() - t0)
     emit(row)
-    kinds = [kind for kind, _ in cfg.layer_plan()]
-    if row["launches_per_prefill"] != [kinds.count({"flash_attention": "attn", "ssd_scan": "ssd"}[kernel])] * prefills:
+    kinds = {"flash_attention": ("attn", "mla"), "ssd_scan": ("ssd",)}[kernel]
+    per_prefill = sum(kind in kinds for kind, _ in cfg.layer_plan())
+    if row["launches_per_prefill"] != [per_prefill] * prefills:
         raise AssertionError(f"long_shapes {name}: {kernel} launched {row['launches_per_prefill']} times a prefill")
     if row["decode_launches"]:
         raise AssertionError(f"long_shapes {name}: a decode step launched {kernel}")
@@ -1954,7 +2020,9 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
         raise AssertionError(f"long_shapes {name}: non-finite logits")
     total = sum(n for key, n in launches if key == "prefill")
     summary[kernel]["launches"] += total
-    summary[kernel].setdefault("launches_by_path", {})[f"long_shapes {name}"] = total
+    summary[kernel].setdefault("launches_by_path", {})[f"long_shapes {cfg.name} {name}"] = total
+    if arch in LONG_K3 and kernel == "flash_attention":  # beside K3's time at this shape
+        summary[kernel][LONG_K3[arch][1]]["launches"] += total
 
 
 def cache_errors(got: list, want: list, names: tuple) -> dict:
@@ -1971,20 +2039,30 @@ def cache_errors(got: list, want: list, names: tuple) -> dict:
     return worst
 
 
-def long_decode_check(dev: torch.device) -> None:
-    """Qwen3-0.6B at full width, LONG_CHECK_LAYERS layers, 2 rows, through
+def long_decode_check(dev: torch.device, arch: str, layers: int, conditioned: bool = False) -> None:
+    """``arch`` at full width, ``layers`` layers, 2 rows, through
     ``decode_32k``'s steps: the logits of the greedy decode step after a
     prefill of 32,704 tokens (into the 32,768-slot cache) against the last
     logits of a prefill of those 32,705 tokens (padded to 32,768 for K3),
-    within MODEL_REL of the largest value."""
+    within MODEL_REL of the largest value over the real vocabulary.  Qwen3
+    in LONG_CHECK_LAYERS; DeepSeek-V3 in its 3 dense layers, on
+    ``condition_attention``'s w_uq/w_uk as its ``model_check`` runs: MoE
+    capacity is per sequence (``capacity_per_seq``), so a prefill of
+    32,705 tokens may drop a pair at an expert's capacity that a one-token
+    step keeps, the reference's semantics and no fault of the absorbed
+    decode, which the dense layers hold alone."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=LONG_CHECK_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.moe is not None and any(is_moe for _, is_moe in cfg.layer_plan()):
+        raise AssertionError(f"long_shapes decode check: {cfg.name} in {layers} layers has MoE layers")
     shape, prefill, decode = long_steps(cfg, "decode_32k", 2, dev)
     s = shape.seq_len - LONG_TAIL
     t0 = time.monotonic()
     params = Model(cfg).init(seed=0, device=dev)
+    if conditioned:
+        condition_attention(cfg, params)
     tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=torch.Generator().manual_seed(13))
     logits, cache = prefill(params, {"tokens": tokens}, seq_cap=shape.seq_len)
     ids = logits.argmax(dim=-1)[:, None]
@@ -1993,14 +2071,16 @@ def long_decode_check(dev: torch.device) -> None:
     whole, _ = prefill(params, {"tokens": torch.cat([tokens, ids.cpu()], dim=1)}, seq_cap=shape.seq_len)
     vocab = cfg.vocab_size  # the head's padding columns, where there are any, hold -2**30 in both
     err = _rel_err(step_logits[..., :vocab], whole[..., :vocab].float().cpu(), "decode logits")
-    row = {"phase": "long_shapes", "case": "decode_against_prefill_32k", "arch": cfg.name, "layers": cfg.num_layers,
+    case = "decode_against_prefill_32k" + ("" if arch == "qwen3-0.6b" else f"_{cfg.name}")
+    row = {"phase": "long_shapes", "case": case, "arch": cfg.name, "layers": cfg.num_layers,
+           "weights": conditioned_weights(cfg) if conditioned else "seed 0",
            "rows": 2, "prompt": s, "cache": shape.seq_len, "max_rel_err": err,
            "same_greedy_ids": bool((step_logits.argmax(-1) == whole.argmax(-1)).all()),
            "bar": f"max |decode - prefill of S+1| <= {MODEL_REL} * max |prefill|, logits[..., :{vocab}]",
            "seconds": time.monotonic() - t0}
     emit(row)
     if err > MODEL_REL:
-        raise AssertionError(f"long_shapes decode_32k: the decode step is {err:.3g} from the prefill of S+1")
+        raise AssertionError(f"long_shapes decode_32k {cfg.name}: the decode step is {err:.3g} from the prefill of S+1")
 
 
 def long_state_check(dev: torch.device, dtype: str) -> None:
@@ -2053,25 +2133,43 @@ def long_state_check(dev: torch.device, dtype: str) -> None:
 
 def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
     """The reference's long shapes at full width and depth on one card
-    (``long_shapes``): K3 at ``prefill_32k``'s attention and K4 at
-    ``long_500k``'s scan against their plain versions; Qwen3-0.6B at
-    ``prefill_32k`` (4 rows of 32,768) and ``decode_32k`` (8 rows: a
-    prefill of 32,704 tokens into the 32,768-slot cache, then 64 greedy
-    decode steps to its last slot); the decode step after a 32k prompt
-    against the prefill of one token more; Mamba2-780m at ``long_500k`` (a
-    prefill of 524,288 tokens, then 16 decode steps from its state); and
-    the state after 524,288 tokens by one chunk against another and the
-    recurrent decode, in bf16 and, as its witness, in f32."""
-    for case in (lambda: long_k3(dev, summary, card), lambda: long_k4(dev, summary, card),
-                 lambda: long_run(dev, summary, "qwen3-0.6b", "prefill_32k", 0, 0, 2,
-                                  "flash_attention", "fa_tc_bf16", "prefill"),
-                 lambda: long_run(dev, summary, "qwen3-0.6b", "decode_32k", LONG_TAIL, LONG_TAIL, 1,
-                                  "flash_attention", "fa_tc_bf16", "decode"),
-                 lambda: long_decode_check(dev),
-                 lambda: long_run(dev, summary, "mamba2-780m", "long_500k", 0, LONG_500K_STEPS, 1,
-                                  "ssd_scan", "ssd_tc_bf16", "prefill"),
-                 lambda: long_state_check(dev, "bfloat16"), lambda: long_state_check(dev, "float32")):
-        case()
+    (``long_shapes``), a ``seconds`` line after each case: K3 at
+    ``prefill_32k``'s attention of Qwen3-0.6B, DeepSeek-V3 (MLA), Yi-6B and
+    OLMo-1B and K4 at ``long_500k``'s scan against their plain versions;
+    Qwen3-0.6B at ``prefill_32k`` (4 rows of 32,768) and ``decode_32k`` (8
+    rows: a prefill of 32,704 tokens into the 32,768-slot cache, then 64
+    greedy decode steps to its last slot); the decode step after a 32k
+    prompt against the prefill of one token more; DeepSeek-V3 in 4 layers
+    at ``prefill_32k`` and ``decode_32k`` (one row each, 64 absorbed decode
+    steps over the 32,768-slot latent cache) and its decode check in its 3
+    dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows); Mamba2-780m
+    at ``long_500k`` (a prefill of 524,288 tokens, then 16 decode steps from
+    its state); and the state after 524,288 tokens by one chunk against
+    another and the recurrent decode, in bf16 and, as its witness, in f32."""
+    k3 = ("flash_attention", "fa_tc_bf16")
+    cases = [(f"k3 {arch}", long_k3, (dev, summary, card, arch), {}) for arch in LONG_K3]
+    cases += [
+        ("k4", long_k4, (dev, summary, card), {}),
+        ("qwen3-0.6b prefill_32k", long_run, (dev, summary, "qwen3-0.6b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {}),
+        ("qwen3-0.6b decode_32k",
+         long_run, (dev, summary, "qwen3-0.6b", "decode_32k", LONG_TAIL, LONG_TAIL, 1, *k3, "decode"), {}),
+        ("qwen3-0.6b decode check", long_decode_check, (dev, "qwen3-0.6b", LONG_CHECK_LAYERS), {}),
+        ("deepseek-v3-671b prefill_32k", long_run,
+         (dev, summary, "deepseek-v3-671b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {"layers": LONG_MLA_LAYERS}),
+        ("deepseek-v3-671b decode_32k", long_run,
+         (dev, summary, "deepseek-v3-671b", "decode_32k", LONG_TAIL, LONG_TAIL, 1, *k3, "decode"),
+         {"layers": LONG_MLA_LAYERS}),
+        ("deepseek-v3-671b decode check", long_decode_check,
+         (dev, "deepseek-v3-671b", LONG_MLA_CHECK_LAYERS), {"conditioned": True}),
+        ("yi-6b prefill_32k", long_run, (dev, summary, "yi-6b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {}),
+        ("olmo-1b prefill_32k", long_run, (dev, summary, "olmo-1b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {}),
+        ("mamba2-780m long_500k", long_run,
+         (dev, summary, "mamba2-780m", "long_500k", 0, LONG_500K_STEPS, 1, "ssd_scan", "ssd_tc_bf16", "prefill"), {}),
+        ("state check bfloat16", long_state_check, (dev, "bfloat16"), {}),
+        ("state check float32", long_state_check, (dev, "float32"), {}),
+    ]
+    for label, fn, args, kwargs in cases:
+        timed(f"long_shapes {label}", fn, *args, **kwargs)
         release_card()
 
 

@@ -27,8 +27,6 @@ frequency: the port's frequencies must be the reference's compiled ones
 bit for bit (``test_rope_freqs_round_as_the_reference``).
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -37,50 +35,17 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch import configs as port_configs  # noqa: E402
-from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ks  # noqa: E402
-from repro_torch.launch.steps import build_step  # noqa: E402
-from repro_torch.models import params_from_reference  # noqa: E402
 from repro_torch.models.layers import rope_freqs  # noqa: E402
 from repro_torch.models.ssm import scan_chunk  # noqa: E402
-from torch_parity import reference_stack  # noqa: E402,F401
+from torch_parity import long_steps, reference_stack, rel_err, smoke_pair  # noqa: E402,F401
 
 B, S, STEPS = 2, 4096, 8  # qwen3: past the reference's 2,048-key threshold
 CAP = S + 64  # decode_32k's cache: 64 slots past the prompt
 L, TAIL = 2048, 8  # mamba2: 128 chunks of 16; the tail's 2,040 scan in chunks of 8
 PREFILL_REL = 2e-5  # f32: of the largest reference value
 DECODE_REL = 1e-4
-
-
-def _np(t) -> np.ndarray:
-    return np.asarray(t.float().numpy() if isinstance(t, torch.Tensor) else t, np.float32)
-
-
-def _rel(got, want) -> float:
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape, (got.shape, want.shape)
-    return float(np.abs(got - want).max() / np.abs(want).max())
-
-
-def _pair(ref, arch):
-    """The reference model and the port's on the reference's seed-0 f32 weights."""
-    ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")
-    cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
-    ref_model = ref.Model(ref_cfg)
-    ref_params = ref_model.init(jax.random.PRNGKey(0))
-    return ref_model, ref_params, cfg, params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
-
-
-def _steps(cfg, name: str, seq: int, rows: int):
-    """The port's prefill and decode steps for the reference's shape ``name``
-    cut to ``seq`` tokens and ``rows`` rows, through ``build_step``: a
-    decode shape's prefill is the same shape as kind ``prefill``."""
-    shape = dataclasses.replace(SHAPES[name], seq_len=seq, global_batch=rows)
-    prefill = build_step(cfg, dataclasses.replace(shape, kind="prefill"), "cpu")
-    decode = build_step(cfg, dataclasses.replace(shape, kind="decode"), "cpu")
-    assert (prefill.shape.kind, decode.shape.kind) == ("prefill", "decode")
-    return prefill.fn, decode.fn
 
 
 ROPE_ARCHS = [a for a in port_configs.all_archs() if port_configs.get_config(a).family != "ssm"]
@@ -105,32 +70,40 @@ def test_rope_freqs_round_as_the_reference(reference_stack, arch, smoke):  # noq
 
 
 def _qwen3_prefill(ref):
-    ref_model, ref_params, cfg, params = _pair(ref, "qwen3-0.6b")
+    ref_model, ref_params, cfg, params = smoke_pair(ref, "qwen3-0.6b")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     launches = fa.flash_attention.launches
-    prefill, decode = _steps(cfg, "decode_32k", CAP, B)
+    prefill, decode = long_steps(cfg, "decode_32k", CAP, B)
     logits, cache = prefill(params, {"tokens": tokens}, seq_cap=CAP)
     assert fa.flash_attention.launches == launches  # CPU tensors: the plain version
-    want_logits, want_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
+    # JAX dispatches asynchronously: the reference's prefill ends here, so the
+    # port's prefills that follow run alone on the CPU, as the first one did
+    want_logits, want_cache = jax.block_until_ready(ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)}))
     return ref_model, ref_params, cfg, params, tokens, (prefill, decode), (logits, cache), (want_logits, want_cache)
 
 
 def test_qwen3_prefill_past_the_chunked_attention_threshold(reference_stack):  # noqa: F811
     """2 x 4,096 tokens through the ``prefill_32k`` step: logits and every
     layer's k and v within 2e-5 of the largest reference value; the
-    cache's slots past the prompt untouched."""
+    cache's slots past the prompt untouched.  The same prompt through
+    ``decode_32k``'s prefill, into a cache of 4,160 slots, gives the same
+    logits and k and v bit for bit: the capacity only sizes the cache."""
     _, _, cfg, params, tokens, _, got, want = _qwen3_prefill(reference_stack)
-    prefill, _ = _steps(cfg, "prefill_32k", S, B)
+    prefill, _ = long_steps(cfg, "prefill_32k", S, B)
     logits, cache = prefill(params, {"tokens": tokens})
     assert tuple(cache[0]["blocks"][0]["k"].shape)[2] == S  # capacity: the prompt
     torch.testing.assert_close(logits, got[0], rtol=0, atol=0)  # the same step, capacity aside
-    assert (err := _rel(logits, want[0])) <= PREFILL_REL, f"prefill logits {err:.3g}"
+    for seg, wide_seg in zip(cache, got[1]):
+        for blk, wide in zip(seg["blocks"], wide_seg["blocks"]):
+            for name in blk:
+                torch.testing.assert_close(blk[name], wide[name][:, :, :S], rtol=0, atol=0, msg=name)
+    assert (err := rel_err(logits, want[0])) <= PREFILL_REL, f"prefill logits {err:.3g}"
     for seg, want_seg in zip(got[1], want[1]):
         for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
             assert blk.keys() == want_blk.keys() == {"k", "v"}
             for name in blk:
                 assert not blk[name][:, :, S:].any(), name
-                assert (err := _rel(blk[name][:, :, :S], want_blk[name])) <= PREFILL_REL, f"cache {name} {err:.3g}"
+                assert (err := rel_err(blk[name][:, :, :S], want_blk[name])) <= PREFILL_REL, f"cache {name} {err:.3g}"
 
 
 def test_qwen3_decode_after_a_long_prompt(reference_stack):  # noqa: F811
@@ -155,18 +128,18 @@ def test_qwen3_decode_after_a_long_prompt(reference_stack):  # noqa: F811
         np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids), err_msg=f"step {t} ids")
         logits, cache = decode(params, cache, ids, S + t)
         want_logits, want_cache = ref_decode(ref_params, want_cache, want_ids, jnp.int32(S + t))
-        assert (err := _rel(logits, want_logits)) <= DECODE_REL, f"decode step {t} {err:.3g}"
+        assert (err := rel_err(logits, want_logits)) <= DECODE_REL, f"decode step {t} {err:.3g}"
         fed = np.concatenate([fed, ids.numpy()], axis=1)
         if t in (0, STEPS - 1):  # S + 1 tokens, padded to 4,160 for the kernel; and S + 8
             again, _ = prefill(params, {"tokens": fed}, seq_cap=CAP)
-            assert (err := _rel(logits, again)) <= PREFILL_REL, f"decode step {t} against prefill {err:.3g}"
+            assert (err := rel_err(logits, again)) <= PREFILL_REL, f"decode step {t} against prefill {err:.3g}"
 
 
 def _mamba2(ref):
-    ref_model, ref_params, cfg, params = _pair(ref, "mamba2-780m")
+    ref_model, ref_params, cfg, params = smoke_pair(ref, "mamba2-780m")
     assert (scan_chunk(cfg, L), scan_chunk(cfg, L - TAIL)) == (16, 8)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, L), dtype=np.int32)
-    prefill, decode = _steps(cfg, "long_500k", L, 1)
+    prefill, decode = long_steps(cfg, "long_500k", L, 1)
     return ref_model, ref_params, cfg, params, tokens, prefill, decode
 
 
@@ -179,12 +152,12 @@ def test_mamba2_prefill_over_128_chunks(reference_stack):  # noqa: F811
     logits, cache = prefill(params, {"tokens": tokens})
     assert ks.ssd_scan.launches == launches
     want_logits, want_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
-    assert (err := _rel(logits, want_logits)) <= PREFILL_REL, f"prefill logits {err:.3g}"
+    assert (err := rel_err(logits, want_logits)) <= PREFILL_REL, f"prefill logits {err:.3g}"
     blk, want_blk = cache[0]["blocks"][0], want_cache[0]["blocks"][0]
     assert blk.keys() == want_blk.keys() == {"ssm", "conv"}
     for name in blk:
         for layer in range(cfg.num_layers):
-            err = _rel(blk[name][layer], want_blk[name][layer])
+            err = rel_err(blk[name][layer], want_blk[name][layer])
             assert err <= PREFILL_REL, f"layer {layer} {name} {err:.3g}"
 
 
@@ -198,9 +171,9 @@ def test_mamba2_state_carried_by_decode_steps(reference_stack):  # noqa: F811
     logits, cache = prefill(params, {"tokens": tokens[:, :L - TAIL]})
     for t in range(L - TAIL, L):
         logits, cache = decode(params, cache, tokens[:, t:t + 1], t)
-    assert (err := _rel(logits, want_logits)) <= PREFILL_REL, f"logits {err:.3g}"
+    assert (err := rel_err(logits, want_logits)) <= PREFILL_REL, f"logits {err:.3g}"
     blk, want_blk = cache[0]["blocks"][0], want_cache[0]["blocks"][0]
     for name in blk:
         for layer in range(cfg.num_layers):
-            err = _rel(blk[name][layer], want_blk[name][layer])
+            err = rel_err(blk[name][layer], want_blk[name][layer])
             assert err <= PREFILL_REL, f"layer {layer} {name} {err:.3g}"

@@ -234,3 +234,52 @@ def prefill_at_positions(ref, monkeypatch, arch: str, seed: int = 0):
     with route_check.RouteRecorder(replay=routes.idx if cfg.moe else None):
         got = Model(cfg).prefill(params, {"tokens": torch.from_numpy(tokens), "positions": torch.from_numpy(positions)})
     return jax.tree.map(lambda t: t.numpy(), got), want
+
+
+# ---------------------------------------------------------------------------
+# the reference's long shapes, cut to the CPU
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, both as f32 numpy."""
+    import torch
+
+    got, want = (np.asarray(t.float().numpy() if isinstance(t, torch.Tensor) else t, np.float32)
+                 for t in (got, want))
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def smoke_pair(ref, arch: str, seed: int = 0):
+    """``arch``'s smoke config in f32 in both packages and the reference's
+    seed-``seed`` weights: (reference model, its params, the port's
+    config, the same params as the port's CPU tensors)."""
+    import dataclasses
+
+    import jax
+
+    from repro_torch import configs as port_configs
+    from repro_torch.models import params_from_reference
+
+    ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
+    ref_model = ref.Model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(seed))
+    return ref_model, ref_params, cfg, params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
+
+
+def long_steps(cfg, name: str, seq: int, rows: int):
+    """The port's prefill and decode steps for the reference's shape ``name``
+    cut to ``seq`` tokens and ``rows`` rows, through ``build_step``: a
+    decode shape's prefill is the same shape as kind ``prefill``."""
+    import dataclasses
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.steps import build_step
+
+    shape = dataclasses.replace(SHAPES[name], seq_len=seq, global_batch=rows)
+    prefill = build_step(cfg, dataclasses.replace(shape, kind="prefill"), "cpu")
+    decode = build_step(cfg, dataclasses.replace(shape, kind="decode"), "cpu")
+    assert (prefill.shape.kind, decode.shape.kind) == ("prefill", "decode")
+    return prefill.fn, decode.fn
