@@ -39,6 +39,9 @@ and a copy of the same bytes), then runs
     and Jamba-1.5-Large (2 layers: attention with its dense FFN, then SSD
     with a 16-expert MoE; K3 and K4 in one stack) in bf16; every MoE
     route that differs is printed with its probability gap;
+  - Qwen1.5-110B at full width, cut to 2 layers, on the card against the
+    CPU in f32 and bf16, its QKV biases (zeros in the reference's init)
+    drawn from a seed;
   - DeepSeek-V3 at full width on the card against the CPU: 2 dense MLA
     layers in f32 with TF32 off, and 4 layers (3 dense, then one of 256
     experts top 8 and a shared expert; 31.6 GB of bf16 weights) in bf16,
@@ -51,6 +54,9 @@ and a copy of the same bytes), then runs
     attention layers, each FFN 32 experts top 8), K3 in its prefill;
   - ``BatchServer`` on DeepSeek-V3 at full width, cut to 4 layers, K3 in
     its MLA prefill;
+  - ``BatchServer`` on Jamba-1.5-Large at full width, cut to 4 layers
+    (attention + dense, SSD + MoE, SSD + dense, SSD + MoE), K3 and K4 in
+    each prefill, and on Qwen1.5-110B cut to 4 layers;
   - MusicGen-medium (48 layers, four codebooks) and InternVL2-2B (24
     layers, a vision prefix of 256 positions) at full width and depth
     through ``build_prefill_step`` and ``build_decode_step`` in the
@@ -68,14 +74,19 @@ and a copy of the same bytes), then runs
     ``decode_32k`` (one row: 64 absorbed steps over the 32,768-slot latent
     cache) and its decode step against the prefill of one token more in its
     3 dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows);
+    Jamba-1.5-Large in 3 layers at ``prefill_32k`` and ``decode_32k`` (2
+    rows; K3 at its attention and K4 at its 32k scan held to their plain
+    versions) and its decode step against the prefill of one token more;
+    Qwen1.5-110B in 4 layers at ``prefill_32k`` (2 rows);
     Mamba2-780m at ``long_500k`` (524,288 tokens, then 16 decode steps);
     the state after 524,288 tokens against a prefill in another chunk and
     64 decode steps;
   - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M,
     DeepSeek-V3, MusicGen-medium and InternVL2-2B at full width, cut to 2
-    layers (DeepSeek to 1, its MTP block beside it), on the card against the same step on the CPU, in f32
-    with TF32 off and in bf16 (``train_check``; Granite's aux loss and
-    routes, DeepSeek's MTP loss too);
+    layers (DeepSeek to 1, its MTP block beside it), up to the optimizer's
+    update, on the card against the same step on the CPU, in f32
+    with TF32 off and in bf16 (``train_check``: loss, grad norm and every
+    gradient leaf; Granite's aux loss and routes, DeepSeek's MTP loss too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
     (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 2 steps,
     with a checkpoint at step 1 that a fresh ``Trainer.from_checkpoint``
@@ -126,6 +137,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))  # route_check
+sys.path.insert(0, str(ROOT / "tests"))  # torch_parity's draw_zero_leaves, which the CPU tests draw with too
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -144,6 +156,13 @@ HOST_COVER_CYCLES = 200_000  # a device sleep of ~0.1 ms, longer than a wrapper'
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TOL, atol and rtol
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
+# bf16: the SSD state of Jamba's decode step against the prefill of one token more.  The last tokens'
+# inputs reach it through two bf16 pipelines (the step's and the prefill's) and three layers, attention,
+# SSD + MoE, SSD: the SSD layer after the MoE read 2.07e-2 (seed 0) and 3.06e-2 (condition_attention's
+# weights), the same check in f32 6.7e-5 and 6.7e-6 (probes_torch/hybrid_decode_gap.py, NVIDIA H100 80GB
+# HBM3, 700.00 W).  The CPU tests hold jamba-smoke's bf16 caches to the reference's at the same bar
+# (HYBRID_BF16_REL in tests/test_torch_models.py: 2.4-3.5e-2 measured there)
+HYBRID_STATE_REL = 5e-2
 TRAIN_F32_REL = 1e-4  # f32 train step, TF32 off: the CPU tests' f32 gradient bar, of the largest |cpu value|
 SWAP_GAP = 1e-2  # bf16: a MoE route may differ from the CPU's only where its k-th and (k+1)-th probabilities are closer
 SWAP_GAP_F32 = 1e-5  # f32, TF32 off: the same, for rounding some 1e-6 of a value
@@ -172,16 +191,38 @@ CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check promp
 # v and their copies for K3) and about 30 GB in the MoE layer (apply_moe keeps the dispatched tokens and
 # the experts' outputs, 4.7 GB each at 1,280 slots an expert, and combines 262,144 pairs of 7,168 values
 # in f32, 7.5 GB twice): one row reckons at about 62 GB, two at about 93 GB
+# Jamba-1.5-large in JAMBA_LONG_LAYERS layers reckons at about 19 GB a row of 32,768 tokens in its MoE
+# layer (5,120 slots an expert at capacity factor 1.25: the dispatched tokens 1.34 GB, the experts' three
+# intermediates about 4 GB each, their outputs 1.34 GB, two f32 copies of 65,536 pairs 2.1 GB each) and
+# about 8 GB in an SSD layer, beside 25.9 GB of weights: 2 rows.  Qwen1.5-110B in QWEN15_LAYERS layers:
+# 15.9 GB of weights and about 9.7 GB a row of FFN intermediates: 2 rows
 LONG_ROWS = {("qwen3-0.6b", "prefill_32k"): 4, ("qwen3-0.6b", "decode_32k"): 8, ("mamba2-780m", "long_500k"): 1,
              ("deepseek-v3-671b", "prefill_32k"): 1, ("deepseek-v3-671b", "decode_32k"): 1,
-             ("yi-6b", "prefill_32k"): 2, ("olmo-1b", "prefill_32k"): 2}
+             ("yi-6b", "prefill_32k"): 2, ("olmo-1b", "prefill_32k"): 2,
+             ("jamba-1.5-large-398b", "prefill_32k"): 2, ("jamba-1.5-large-398b", "decode_32k"): 2,
+             ("qwen1.5-110b", "prefill_32k"): 2}
 LONG_MLA_LAYERS = 4  # DeepSeek-V3 as serve runs it: 3 dense MLA layers, then one of 256 experts
 LONG_MLA_CHECK_LAYERS = 3  # its decode-against-prefill check: the dense layers alone (first_k_dense)
+# Jamba at the long shapes: attention + dense FFN, SSD + MoE, SSD + dense, every block kind it has (25.9 GB)
+JAMBA_LONG_LAYERS = 3
+JAMBA_SERVE_LAYERS = 4  # serve: attention + dense, SSD + MoE, SSD + dense, SSD + MoE (46.1 GB)
+QWEN15_LAYERS = 4  # Qwen1.5-110B served and at prefill_32k (15.9 GB); its model_check in 2 (10.4 GB)
+# the hybrid decode check: at capacity factor experts / top-k (8) an expert holds every token of the
+# prompt, and its three intermediates take 786 kB a token (25.7 GB at 32,705 tokens): at 8,192 the MoE
+# layer holds about 24 GB beside the 25.9 GB of weights.  Its f32 witness: 51.8 GB of weights, and at
+# 2,048 tokens about 12 GB in the MoE layer.  The prefill of one token more scans in chunks of 1
+JAMBA_CHECK_PROMPT = {"bfloat16": 8192, "float32": 2048}
 # long_k3: arch -> (case, the kernels line's key, the rows and q heads held to the plain version, None: all)
 LONG_K3 = {"qwen3-0.6b": ("k3_prefill_32k", "prefill_32k", None, None),
            "deepseek-v3-671b": ("k3_mla_prefill_32k", "mla_prefill_32k", 1, 32),
            "yi-6b": ("k3_yi_prefill_32k", "yi_prefill_32k", 1, None),
-           "olmo-1b": ("k3_olmo_prefill_32k", "olmo_prefill_32k", 1, None)}
+           "olmo-1b": ("k3_olmo_prefill_32k", "olmo_prefill_32k", 1, None),
+           "qwen1.5-110b": ("k3_h64_kv8_prefill_32k", "h64_kv8_prefill_32k", 1, None)}
+# Jamba's attention is Qwen1.5-110B's K3 shape: 64 heads of 128 over 8 kv heads, 2 rows at prefill_32k
+K3_SHAPE_OF = {"jamba-1.5-large-398b": "qwen1.5-110b"}
+# long_k4: arch -> (case, the kernels line's key, the shape whose scan it is)
+LONG_K4 = {"mamba2-780m": ("k4_long_500k", "long_500k", "long_500k"),
+           "jamba-1.5-large-398b": ("k4_jamba_prefill_32k", "jamba_prefill_32k", "prefill_32k")}
 LONG_TAIL = 64  # decode_32k decodes the cache's last 64 slots; the checks decode 64 tokens after a prefill
 LONG_500K_STEPS = 16  # long_500k's decode steps from the prefill's state
 LONG_CHECK_LAYERS = 4  # the decode-against-prefill and state checks: full width, 4 layers
@@ -189,8 +230,11 @@ LONG_TIMED_RUNS = 5  # K3/K4 at the long shapes: each launch is 35-215 ms
 # Yi-6B and OLMo-1B have no qk_norm: on the seed-0 weights an H100 read Yi f32 1.52e-4 / 3.90e-4 and
 # bf16 8.7e-3 / 0.127 (prefill / decode logits), OLMo bf16 5.95e-2 / 0.225, over their bars, and OLMo f32
 # 4.8e-5 / 7.4e-5, within; the checks over the bar run on condition_attention's weights
+# Qwen1.5-110B has none either, and a wider d_model (8,192) over the same 128-dim heads: both run so
 CONDITIONED = {("yi-6b", "float32"): True, ("yi-6b", "bfloat16"): True,
-               ("olmo-1b", "float32"): False, ("olmo-1b", "bfloat16"): True}
+               ("olmo-1b", "float32"): False, ("olmo-1b", "bfloat16"): True,
+               ("qwen1.5-110b", "float32"): True, ("qwen1.5-110b", "bfloat16"): True}
+QWEN15_CHECK_SEQ = 128  # Qwen1.5-110B's model_check prompt, as Jamba's: the CPU run is most of its time
 
 
 def emit(obj: dict) -> None:
@@ -1131,6 +1175,8 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("jamba", 2, 64, 8, 128, 128, 128, bf16, True, 128, 128),  # Jamba's model_check prefill
         ("yi", 8, 32, 4, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),  # Yi-6B's prefill: kv groups of 8
         ("olmo", 8, 16, 16, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),  # OLMo-1B's: MHA
+        # Jamba-1.5-large's and Qwen1.5-110B's serving prefill: 64 heads over 8 kv heads
+        ("h64_kv8", 8, 64, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 128, 128),
         # DeepSeek-V3's MLA prefill: 128 heads as kv groups of 1, q and k of
         # 128 + 64 rope dims, v of 128 zero-padded to 192
         ("mla", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 128, 128),
@@ -1173,8 +1219,8 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
             raise AssertionError(f"flash_attention {name}: the zero-padded v's output columns are not zero")
         if name.startswith("pos"):
             row["positions"] = "restart (two packed prompts a row, seeded split), last row repeated"
-        if name in ("main", "f32", "granite", "musicgen", "yi", "olmo", "mla", "mla_f32", "mla_block_k64", "pos_main",
-                    "pos_f32"):
+        if name in ("main", "f32", "granite", "musicgen", "yi", "olmo", "h64_kv8", "mla", "mla_f32", "mla_block_k64",
+                    "pos_main", "pos_f32"):
             row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush)
             nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got, kw.get("q_pos"), kw.get("kv_pos"))
                          if t is not None)
@@ -1198,7 +1244,7 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
                                                               "bound_by")}
         if name == "pos_f32":
             entry["by_position"].update(f32_ms=row["ms"], f32_index_ms=row["index_ms"])
-        if name in ("main", "granite", "musicgen", "yi", "olmo", "mla"):
+        if name in ("main", "granite", "musicgen", "yi", "olmo", "h64_kv8", "mla"):
             row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush)
             if name == "mla":  # SDPA takes v's own 128 dims; its default scale is 1/sqrt(192), as K3's
                 v_lib = v[..., :MLA_V_DIM].contiguous()
@@ -1209,7 +1255,7 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
                 row["library"] = LIBRARY_ATTENTION
             row["over_library"] = row["ms"] / row["library_ms"]
             row["over_bound"] = row["ms"] / row["bound_ms"]
-        if name in ("granite", "musicgen", "yi", "olmo", "mla"):
+        if name in ("granite", "musicgen", "yi", "olmo", "h64_kv8", "mla"):
             entry[name] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if name == "musicgen":  # the instance its prefill runs
             instance = f"fa_tc_bf16<{hd},{bk // 64}>"
@@ -1349,6 +1395,19 @@ def condition_attention(cfg, params: dict) -> dict:
     return params
 
 
+def draw_zero_leaves(params: dict, seed: int) -> dict:
+    """``params`` (on any device) with the leaves the reference initialises
+    to zeros drawn in place by ``tests/torch_parity.py``'s
+    ``draw_zero_leaves``, the values the CPU tests give both packages; what
+    was drawn."""
+    import torch_parity
+    from repro_torch.tree import tree_items
+
+    torch_parity.draw_zero_leaves(params, seed)
+    names = sorted({path.split("'")[-2] for path, _ in tree_items(params)} & set(torch_parity.ZERO_LEAVES))
+    return {"leaves": names, "seed": seed, "std": torch_parity.ZERO_LEAF_STD, "by": "torch_parity.draw_zero_leaves"}
+
+
 def conditioned_weights(cfg) -> str:
     if cfg.mla is not None:
         return "seed 0, w_uq/w_uk at fan-in q_lora_rank/kv_lora_rank (condition_attention)"
@@ -1425,7 +1484,7 @@ def route_row(cfg, want: list, got: list, diffs: list | None = None) -> dict:
 
 def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "model_check",
                       dtype: str | None = None, conditioned: bool = False, layers: int = 2,
-                      restart: bool = False) -> None:
+                      restart: bool = False, drawn: int | None = None) -> None:
     """``arch`` at full width, ``layers`` layers (2 by default, for the CPU
     run's sake), in its own dtype or ``dtype``: the port on the card
     against the same model and weights on the CPU, prefill of ``seq``
@@ -1447,7 +1506,11 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     SWAP_GAP (bf16) or SWAP_GAP_F32 (f32) fails.
 
     With ``restart`` the prompts carry ``restart_positions``, which RoPE
-    rotates by and K3 masks by (its position route)."""
+    rotates by and K3 masks by (its position route).  With ``drawn`` the
+    leaves the reference initialises to zeros (QKV biases, the SSD block's
+    conv bias, A_log and dt_bias, LayerNorm's bias) are drawn from that
+    seed by ``tests/torch_parity.py``'s ``draw_zero_leaves``, on both
+    sides."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
@@ -1467,6 +1530,8 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
         params = model.init(seed=0, device=dev)
         if conditioned:
             condition_attention(cfg, params)
+        if drawn is not None:
+            drawn_row = draw_zero_leaves(params, drawn)
         host_params = tree_map(lambda t: t.cpu(), params)
         cpu = serve_run(model, host_params, batch, forced, torch.device("cpu"), cfg.vocab_size)
         del host_params
@@ -1481,6 +1546,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
     row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "batch": b, "seq": s, "decode_steps": steps, "dtype": cfg.dtype, "prefill_launches": launches,
            "weights": conditioned_weights(cfg) if conditioned else "seed 0",
+           **({"drawn": drawn_row} if drawn is not None else {}),
            **({"positions": "restart_positions: two packed prompts a row, the last row repeated"} if restart else {}),
            "params": model.param_count(), "max_rel_err_vs_cpu": worst,
            "bar": f"max |card - cpu| <= {bar} * max |cpu|", "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0}
@@ -1493,8 +1559,7 @@ def phase_model_check(dev: torch.device, arch: str, seq: int, phase: str = "mode
         raise AssertionError(f"{phase} {arch} over the bar: {over}")
     if moe_layers(cfg) and row["routes"]["max_swap_gap"] > row["routes"]["swap_gap_bar"]:
         raise AssertionError(f"{phase} {arch}: a route swapped at a gap of {row['routes']['max_swap_gap']}")
-    kinds = [kind for kind, _ in cfg.layer_plan()]
-    want_launches = {"flash_attention": kinds.count("attn") + kinds.count("mla"), "ssd_scan": kinds.count("ssd")}
+    want_launches = prefill_launches(cfg)
     if launches != want_launches:
         raise AssertionError(f"{phase} {arch}: the prefill launched {launches}, expected {want_launches}")
 
@@ -1601,10 +1666,11 @@ def serve_prompts(n: int) -> list[str]:
     return out
 
 
-def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
+def trace_step(dev: torch.device, fn, *kernel_symbols: str) -> dict:
     """One call of ``fn`` under ``torch.profiler``, the card's activity only:
-    the card's busy time (the sum of its kernels' times), the named kernel's
-    share, and the top five."""
+    the card's busy time (the sum of its kernels' times), the named
+    kernels' time and launches together (``kernel_ms``) and each one's with
+    its share of the busy time (``by_kernel``), and the top five."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
@@ -1612,12 +1678,40 @@ def trace_step(dev: torch.device, fn, kernel_symbol: str) -> dict:
         fn()
         sync(dev)
     on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    mine = [e for e in on_card if kernel_symbol in e.key]
+    busy = sum(e.self_device_time_total for e in on_card) / 1e3
+    by_kernel = {}
+    for symbol in kernel_symbols:
+        mine = [e for e in on_card if symbol in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        by_kernel[symbol] = {"ms": ms, "launches": sum(e.count for e in mine), "share": ms / busy if busy else 0.0}
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
-    return {"device_busy_ms": sum(e.self_device_time_total for e in on_card) / 1e3,
-            "kernel_ms": sum(e.self_device_time_total for e in mine) / 1e3,
-            "kernel_launches": sum(e.count for e in mine), "device_launches": sum(e.count for e in on_card),
+    return {"device_busy_ms": busy, "kernel_ms": sum(k["ms"] for k in by_kernel.values()),
+            "kernel_launches": sum(k["launches"] for k in by_kernel.values()), "by_kernel": by_kernel,
+            "device_launches": sum(e.count for e in on_card),
             "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+# each hand-written kernel a prefill launches once for every layer of its kinds, and its CUDA name
+PREFILL_KERNELS = {"flash_attention": (("attn", "mla"), "fa_tc_bf16"), "ssd_scan": (("ssd",), "ssd_tc_bf16")}
+
+
+def prefill_launches(cfg) -> dict:
+    """The launches of each of K3 and K4 that one prefill of ``cfg`` makes:
+    K3 once an attention (or MLA) layer, K4 once an SSD layer; a decode
+    step launches neither."""
+    kinds = [kind for kind, _ in cfg.layer_plan()]
+    return {name: sum(kind in layer_kinds for kind in kinds) for name, (layer_kinds, _) in PREFILL_KERNELS.items()}
+
+
+def path_kernel_symbols(cfg) -> list[str]:
+    """The CUDA names of the kernels ``cfg``'s prefill launches."""
+    return [PREFILL_KERNELS[name][1] for name, n in prefill_launches(cfg).items() if n]
+
+
+def since(before: dict) -> dict:
+    """K3's and K4's launches since ``before`` (a ``_kernel_launches()``)."""
+    now = _kernel_launches()
+    return {name: now[name] - before[name] for name in PREFILL_KERNELS}
 
 
 def greedy(prefill, decode, params, batch: dict) -> list[list]:
@@ -1658,18 +1752,19 @@ def spec_bytes(model, rows: int, cap: int) -> dict:
     return {"param_bytes": params, "cache_bytes": cache}
 
 
-def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel_symbol: str,
-                layers: int | None = None, example=None) -> None:
+def phase_serve(dev: torch.device, summary: dict, arch: str, layers: int | None = None, example=None) -> None:
     """The serving path at full width and depth (or cut to ``layers``),
-    seed-initialized on the card, two prefill batches of SERVE_BATCH;
-    ``kernel`` is the one its prefill launches once a layer
-    (``kernel_symbol`` in its CUDA name), and every batch must launch it
-    exactly once a layer.  ``BatchServer`` serves byte prompts; MusicGen
+    seed-initialized on the card, two prefill batches of SERVE_BATCH; every
+    batch must launch K3 once an attention (or MLA) layer and K4 once an
+    SSD layer (``prefill_launches``), and no decode step either; the
+    traced prefill must show each.  ``BatchServer`` serves byte prompts; MusicGen
     (codebook ids) and InternVL2 (a vision prefix), which it cannot take,
     run ``build_prefill_step`` and ``build_decode_step`` in its greedy
     loop (``greedy``) on ``prompt_batch`` inputs of SERVE_PROMPT tokens.
-    Each step's host time to enqueue is kept beside its time to finish, and
-    one more prefill and decode step run under the profiler.
+    Each step's host time to enqueue is kept beside its time to finish, the
+    peak of ``max_memory_allocated`` while serving beside the bytes
+    ``abstract_params`` and ``cache_spec`` give, and one more prefill and
+    decode step run under the profiler.
 
     With ``example`` (``examples_torch/serve_llm.py``) the prompts go
     through its ``serve``, whose ``BatchServer`` is timed the same way, and
@@ -1677,24 +1772,23 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     same batches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models import Model
     from repro_torch.runtime import BatchServer
 
-    wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    per_batch, symbols = prefill_launches(cfg), path_kernel_symbols(cfg)
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
     times: dict[str, list[float]] = {"prefill": [], "decode": [], "prefill_enqueue": [], "decode_enqueue": []}
-    finite, batch_launches = [], []
+    finite, batch_launches, decode_launches = [], [], dict.fromkeys(per_batch, 0)
 
     def timed(fn, key):
         def run(*args, **kwargs):
             sync(dev)
-            before = wrapper.launches
+            before = _kernel_launches()
             t0 = time.perf_counter()
             logits, cache = fn(*args, **kwargs)
             times[key + "_enqueue"].append((time.perf_counter() - t0) * 1e3)
@@ -1702,7 +1796,10 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
             times[key].append((time.perf_counter() - t0) * 1e3)
             finite.append(bool(torch.isfinite(logits).all()))
             if key == "prefill":
-                batch_launches.append(wrapper.launches - before)
+                batch_launches.append(since(before))
+            else:
+                for name, n in since(before).items():
+                    decode_launches[name] += n
             return logits, cache
         return run
 
@@ -1747,11 +1844,13 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
                     example.BatchServer = real
                 request["printed_lines"] = len(printed.getvalue().splitlines())
                 return [r.token_ids for r in results]
-    wrapper.launches = 0
+    before = _kernel_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
     results = generate()
     wall = time.monotonic() - t0
-    launches = wrapper.launches
+    launches = since(before)
+    peak = torch.cuda.max_memory_allocated(dev)
     if example is not None:  # the same batches through the step builders' greedy loop
         request["same_ids_as_greedy"] = results == [
             ids for batch in server_batches(cfg, prompts) for ids in greedy(prefill_step, decode_step, params, batch)]
@@ -1760,13 +1859,14 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
     def prefill_once():
         held["logits"], held["cache"] = prefill_step(params, trace_batch, seq_cap=SERVE_PROMPT + SERVE_NEW)
 
-    prefill_trace = trace_step(dev, prefill_once, kernel_symbol)
+    prefill_trace = trace_step(dev, prefill_once, *symbols)
     cur = held["logits"].argmax(dim=-1)[:, None]
-    decode_trace = trace_step(dev, lambda: decode_step(params, held["cache"], cur, SERVE_PROMPT), kernel_symbol)
+    decode_trace = trace_step(dev, lambda: decode_step(params, held["cache"], cur, SERVE_PROMPT), *symbols)
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
           "params": model.param_count(), "dtype": cfg.dtype, "batch": SERVE_BATCH,
           "prompt_len": SERVE_PROMPT, "max_new": SERVE_NEW, **request, "prefill_batches": batches,
-          "kernel": kernel, "launches": launches, "launches_per_batch": batch_launches, "results": len(results),
+          "kernels": [name for name, n in per_batch.items() if n], "launches": launches,
+          "launches_per_batch": batch_launches, "decode_launches": decode_launches, "results": len(results),
           "tokens_per_result": sorted({len(ids) for ids in results}), "all_logits_finite": all(finite),
           "reading": "the timings and bytes below are readings, not gates",
           "prefill_ms_per_batch": times["prefill"], "prefill_enqueue_ms_per_batch": times["prefill_enqueue"],
@@ -1778,22 +1878,23 @@ def phase_serve(dev: torch.device, summary: dict, arch: str, kernel: str, kernel
                               "decode": decode_trace["device_busy_ms"] / statistics.median(times["decode"]),
                               "note": "traced busy ms over the untraced step's wall ms (prefill: the faster batch)"},
           "generated_tokens_per_s": sum(len(ids) for ids in results) / wall, "wall_s": wall,
-          **spec_bytes(model, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)})
-    if batch_launches != [cfg.num_layers] * batches:
-        raise AssertionError(f"{kernel} launched {batch_launches} times in {batches} prefill batches of "
-                             f"{cfg.num_layers} layers")
+          "greedy_ids": {"first": results[0], "last": results[-1]},
+          "max_memory_allocated": peak, **spec_bytes(model, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)})
+    if batch_launches != [per_batch] * batches or any(decode_launches.values()):
+        raise AssertionError(f"{batches} prefill batches launched {batch_launches} and the decode steps "
+                             f"{decode_launches}, not {per_batch} a batch and none a step")
     # the profiler may drop a few of a step's ~2,800 kernel records, so the
-    # exact count is the wrapper's (above); the trace must show the kernel
-    if prefill_trace["kernel_launches"] < 1 or prefill_trace["kernel_ms"] <= 0:
-        raise AssertionError(f"the traced prefill shows no launch of {kernel_symbol}")
+    # exact count is the wrapper's (above); the trace must show each kernel
+    missing = [k for k, row in prefill_trace["by_kernel"].items() if row["launches"] < 1 or row["ms"] <= 0]
+    if missing:
+        raise AssertionError(f"the traced prefill shows no launch of {missing}")
     if len(results) != requests or any(len(ids) != SERVE_NEW for ids in results):
         raise AssertionError("a request did not get its tokens")
     if not all(finite):
         raise AssertionError("non-finite logits")
     if example is not None and not request["same_ids_as_greedy"]:
         raise AssertionError(f"serve_llm's ids for {cfg.name} differ from the step builders' greedy loop")
-    summary[kernel]["launches"] += launches
-    summary[kernel].setdefault("launches_by_path", {})[f"serve {cfg.name}"] = launches
+    count_launches(summary, f"serve {cfg.name}", launches)
 
 
 def long_steps(cfg, name: str, rows: int, dev: torch.device):
@@ -1816,7 +1917,9 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     Qwen3-0.6B's q (4,16,32768,128) against k/v (4,8,32768,128);
     DeepSeek-V3's MLA, q/k (1,128,32768,192) and v zero-padded from 128 to
     192 as ``mla_prefill`` pads it; Yi-6B's q (2,32,32768,128) against k/v
-    (2,4,32768,128); OLMo-1B's (2,16,32768,128), MHA.  Held to FA_TOL of
+    (2,4,32768,128); OLMo-1B's (2,16,32768,128), MHA; Qwen1.5-110B's q
+    (2,64,32768,128) against k/v (2,8,32768,128), which is Jamba-1.5-large's
+    too (``K3_SHAPE_OF``).  Held to FA_TOL of
     its plain version (on the rows and q heads ``LONG_K3`` names, with
     their kv heads), timed beside SDPA and its bound.  The bound counts the
     real work, 2 * (qk dims + v dims) operations a causal pair a head, so
@@ -1842,7 +1945,8 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     group = h // hkv
     want = fa.flash_attention_plain(q[:rows, :heads], k[:rows, :heads // group], v[:rows, :heads // group], **kw)
     sync(dev)
-    row = {"phase": "long_shapes", "case": case, "kernel": "flash_attention", "arch": cfg.name, "q": [b, h, s, hd],
+    archs = [cfg.name, *(get_config(a).name for a, of in K3_SHAPE_OF.items() if of == arch)]
+    row = {"phase": "long_shapes", "case": case, "kernel": "flash_attention", "archs": archs, "q": [b, h, s, hd],
            "kv": [b, hkv, s, hd], "v_dims": vd, "dtype": "torch.bfloat16", "block_k": 128,
            "route": fa.kernel_route(torch.bfloat16, hd, 128),
            "held_to_plain": f"rows 0..{rows - 1} of {b}, q heads 0..{heads - 1} of {h} (every element there)",
@@ -1876,20 +1980,26 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     emit(row)
 
 
-def long_k4(dev: torch.device, summary: dict, card: str) -> None:
-    """K4 at ``long_500k``'s scan, x (1,524288,48,64) bf16 (Mamba2-780m's
-    heads, one group of d_state 128), seeded on the card, chunk 256 (2,048
-    chunks): y and h_final within SSD_TOL of its plain version, timed
-    beside it.  At batch 1 a launch is 48 blocks, one partial wave of the
-    card's SMs, so its time is one block's (``batch1_ms``)."""
+def long_k4(dev: torch.device, summary: dict, card: str, arch: str) -> None:
+    """K4 at the scan of ``arch``'s long shape (``LONG_K4[arch]``), bf16,
+    seeded on the card, in the chunk ``scan_chunk`` picks, at the shape's
+    rows in ``LONG_ROWS``: Mamba2-780m's ``long_500k``, x
+    (1,524288,48,64), one group of d_state 128, chunk 256 (2,048 chunks);
+    Jamba-1.5-large's ``prefill_32k``, x (2,32768,256,64), 8 groups of
+    d_state 128, chunk 256.  y and h_final within SSD_TOL of its plain
+    version (every row and head), timed beside it and its bound.  A launch
+    is a block a (row, head): Mamba2's 48 are one partial wave of the card's
+    SMs, so its time is one block's; Jamba's 512 fill it, and
+    ``batch1_ms`` times its first row alone (256 blocks)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.models.ssm import scan_chunk
 
-    cfg = get_config("mamba2-780m")
-    ssd, l = cfg.ssd, SHAPES["long_500k"].seq_len
-    rows = LONG_ROWS[("mamba2-780m", "long_500k")]
+    case, key, shape_name = LONG_K4[arch]
+    cfg = get_config(arch)
+    ssd, l = cfg.ssd, SHAPES[shape_name].seq_len
+    rows = LONG_ROWS[(arch, shape_name)]
     shape = (rows, l, ssd.n_heads(cfg.d_model), ssd.head_dim, ssd.n_groups, ssd.d_state)
     chunk = scan_chunk(cfg, l)
     args = ssd_inputs(torch.Generator(device=dev).manual_seed(11), *shape, torch.bfloat16, dev)
@@ -1898,16 +2008,20 @@ def long_k4(dev: torch.device, summary: dict, card: str) -> None:
     sync(dev)
     on_y, on_h = within_tol(y, want_y, SSD_TOL), within_tol(h_final, want_h, SSD_TOL)
     del want_y, want_h
-    row = {"phase": "long_shapes", "case": "k4_long_500k", "kernel": "ssd_scan", "b_l_h_p_g_n": list(shape),
+    row = {"phase": "long_shapes", "case": case, "kernel": "ssd_scan", "arch": cfg.name, "b_l_h_p_g_n": list(shape),
            "chunk": chunk, "chunks": shape[1] // chunk, "dtype": "torch.bfloat16",
            "route": ks.kernel_route(torch.bfloat16, shape[3], shape[5]), "y": on_y, "h_final": on_h,
-           "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+           "held_to_plain": "every row and head", "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
     if on_y["over_bar"] or on_h["over_bar"]:
         emit(row)
-        raise AssertionError("ssd_scan at long_500k: elements over the bar")
+        raise AssertionError(f"ssd_scan at {cfg.name}'s {shape_name}: elements over the bar")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk), flush, runs=LONG_TIMED_RUNS)
-    row["batch1_ms"] = row["ms"]
+    if rows == 1:
+        row["batch1_ms"] = row["ms"]
+    else:
+        one = tuple(t[:1] if t.dim() > 1 else t for t in args)
+        row["batch1_ms"] = time_ms(lambda: ks.ssd_scan(*one, chunk=chunk), flush, runs=LONG_TIMED_RUNS)
     row["ms_per_chunk"] = row["ms"] / row["chunks"]
     row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk), flush, runs=2, warm=0)
     row["library_ms"] = None
@@ -1915,36 +2029,37 @@ def long_k4(dev: torch.device, summary: dict, card: str) -> None:
     nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h_final))
     row.update(bound(nbytes, ssd_ops(b, l, h, p, n, chunk), BF16_TC_OPS_PER_S, card))
     row["over_bound"] = row["ms"] / row["bound_ms"]
-    row["note"] = "batch1_ms: the launch itself, 48 blocks of one (batch, head) each on 132 SMs"
+    row["note"] = (f"{b * h} blocks of one (row, head) each on the card's SMs; batch1_ms: the first row's "
+                   f"{h} blocks alone")
     entry = summary["ssd_scan"]
     entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
-    entry["long_500k"] = {key: row[key] for key in (
+    entry[key] = {name: row[name] for name in (
         "ms", "batch1_ms", "plain_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")}
+    entry[key]["launches"] = 0  # long_run adds the path's
     emit(row)
 
 
 def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, steps: int,
-             prefills: int, kernel: str, kernel_symbol: str, trace: str, layers: int | None = None) -> None:
+             prefills: int, trace: str, layers: int | None = None) -> None:
     """``arch`` at full width and depth (or cut to ``layers``) through
     ``build_step`` at the reference's shape ``name`` (``LONG_ROWS[(arch,
     name)]`` rows, the shape's sequence as the cache's capacity):
     ``prefills`` seeded prompts of the shape's sequence less ``room``
     tokens, then ``steps`` greedy decode steps after the last one.  Each
-    prefill must launch ``kernel`` once an attention (or MLA) or SSD layer
-    and each decode step none; every logit must be finite.  Readings: wall
-    and host enqueue
+    prefill must launch K3 once an attention (or MLA) layer and K4 once an
+    SSD layer (``prefill_launches``), each decode step neither; every logit
+    must be finite.  Readings: wall and host enqueue
     ms of each prefill and step, the card's busy ms of one more prefill or
-    decode step under the profiler (``trace``) with the kernel's share,
+    decode step under the profiler (``trace``) with each kernel's share,
     the peak of ``max_memory_allocated`` beside the bytes ``abstract_params``
     and ``cache_spec`` give, and the greedy ids."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, ssd_scan
     from repro_torch.models import Model
 
-    wrapper = {"flash_attention": flash_attention.flash_attention, "ssd_scan": ssd_scan.ssd_scan}[kernel]
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    per_prefill, symbols = prefill_launches(cfg), path_kernel_symbols(cfg)
     rows = LONG_ROWS[(arch, name)]
     shape, prefill, decode = long_steps(cfg, name, rows, dev)
     prompt = shape.seq_len - room
@@ -1957,13 +2072,13 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
 
     def run(key, fn, *args, **kwargs):
         sync(dev)
-        before = wrapper.launches
+        before = _kernel_launches()
         start = time.perf_counter()
         logits, cache = fn(*args, **kwargs)
         times[f"{key}_enqueue"].append((time.perf_counter() - start) * 1e3)
         sync(dev)
         times[key].append((time.perf_counter() - start) * 1e3)
-        launches.append((key, wrapper.launches - before))
+        launches.append((key, since(before)))
         finite.append(bool(torch.isfinite(logits).all()))
         return logits, cache
 
@@ -1978,7 +2093,7 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
     if trace == "prefill":
         held.clear()
         prefill_trace = trace_step(dev, lambda: held.update(zip(
-            ("logits", "cache"), prefill(params, {"tokens": tokens}, seq_cap=shape.seq_len))), kernel_symbol)
+            ("logits", "cache"), prefill(params, {"tokens": tokens}, seq_cap=shape.seq_len))), *symbols)
     cur = held["logits"].argmax(dim=-1)[:, None]
     for t in range(steps):
         logits, held["cache"] = run("decode", decode, params, held["cache"], cur, prompt + t)
@@ -1987,9 +2102,9 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
     peak = torch.cuda.max_memory_allocated(dev)
     row = {"phase": "long_shapes", "case": name, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "params": model.param_count(), "dtype": cfg.dtype, "shape": dataclasses.asdict(shape),
-           "rows": rows, "prompt": prompt, "decode_steps": steps, "kernel": kernel,
+           "rows": rows, "prompt": prompt, "decode_steps": steps, "kernels": [k for k, n in per_prefill.items() if n],
            "launches_per_prefill": [n for key, n in launches if key == "prefill"],
-           "decode_launches": sum(n for key, n in launches if key == "decode"),
+           "decode_launches": {k: sum(n[k] for key, n in launches if key == "decode") for k in per_prefill},
            "reading": "the timings and bytes are readings, not gates",
            "prefill_ms": times["prefill"], "prefill_enqueue_ms": times["prefill_enqueue"]}
     if steps:
@@ -1998,40 +2113,45 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
                    decode_ms=[min(times["decode"]), max(times["decode"])])
     if trace == "prefill":
         row["prefill_trace"] = prefill_trace
-        row["kernel_share"] = prefill_trace["kernel_ms"] / prefill_trace["device_busy_ms"]
+        row["kernel_share"] = {symbol: k["share"] for symbol, k in prefill_trace["by_kernel"].items()}
         row["card_busy_share"] = prefill_trace["device_busy_ms"] / min(times["prefill"])
     else:
         row["decode_trace"] = trace_step(dev, lambda: decode(params, held["cache"], cur, prompt + steps - 1),
-                                         kernel_symbol)
+                                         *symbols)
         row["card_busy_share"] = row["decode_trace"]["device_busy_ms"] / row["decode_ms_per_token"]
     row.update(max_memory_allocated=peak, **spec_bytes(model, rows, shape.seq_len),
                greedy_ids={"prefill": ids["prefill"], "decode_first_row": [i[0] for i in ids["decode"]]},
                all_logits_finite=all(finite), seconds=time.monotonic() - t0)
     emit(row)
-    kinds = {"flash_attention": ("attn", "mla"), "ssd_scan": ("ssd",)}[kernel]
-    per_prefill = sum(kind in kinds for kind, _ in cfg.layer_plan())
     if row["launches_per_prefill"] != [per_prefill] * prefills:
-        raise AssertionError(f"long_shapes {name}: {kernel} launched {row['launches_per_prefill']} times a prefill")
-    if row["decode_launches"]:
-        raise AssertionError(f"long_shapes {name}: a decode step launched {kernel}")
-    if trace == "prefill" and (prefill_trace["kernel_launches"] < 1 or prefill_trace["kernel_ms"] <= 0):
-        raise AssertionError(f"long_shapes {name}: the traced prefill shows no launch of {kernel_symbol}")
+        raise AssertionError(f"long_shapes {cfg.name} {name}: {row['launches_per_prefill']} launches in "
+                             f"{prefills} prefills, not {per_prefill} each")
+    if any(row["decode_launches"].values()):
+        raise AssertionError(f"long_shapes {cfg.name} {name}: the decode steps launched {row['decode_launches']}")
+    if trace == "prefill":
+        missing = [k for k, t in prefill_trace["by_kernel"].items() if t["launches"] < 1 or t["ms"] <= 0]
+        if missing:
+            raise AssertionError(f"long_shapes {cfg.name} {name}: the traced prefill shows no launch of {missing}")
     if not all(finite):
-        raise AssertionError(f"long_shapes {name}: non-finite logits")
-    total = sum(n for key, n in launches if key == "prefill")
-    summary[kernel]["launches"] += total
-    summary[kernel].setdefault("launches_by_path", {})[f"long_shapes {cfg.name} {name}"] = total
-    if arch in LONG_K3 and kernel == "flash_attention":  # beside K3's time at this shape
-        summary[kernel][LONG_K3[arch][1]]["launches"] += total
+        raise AssertionError(f"long_shapes {cfg.name} {name}: non-finite logits")
+    total = {k: sum(n[k] for key, n in launches if key == "prefill") for k in per_prefill}
+    count_launches(summary, f"long_shapes {cfg.name} {name}", total)
+    # beside the kernels' times at this shape
+    k3_arch = K3_SHAPE_OF.get(arch, arch)
+    if k3_arch in LONG_K3:
+        summary["flash_attention"][LONG_K3[k3_arch][1]]["launches"] += total["flash_attention"]
+    if arch in LONG_K4:
+        summary["ssd_scan"][LONG_K4[arch][1]]["launches"] += total["ssd_scan"]
 
 
 def cache_errors(got: list, want: list, names: tuple) -> dict:
-    """Each layer's ``names`` entries of two caches: the largest difference
-    over the layer's largest |want| value, the worst layer's."""
+    """Each layer's ``names`` entries of two caches (those its block holds):
+    the largest difference over the layer's largest |want| value, the worst
+    layer's."""
     worst: dict[str, float] = {}
     for seg, want_seg in zip(got, want):
         for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
-            for name in names:
+            for name in (n for n in names if n in blk):
                 for layer in range(blk[name].shape[0]):
                     g, w = blk[name][layer].float(), want_blk[name][layer].float()
                     err = float((g - w).abs().max() / w.abs().max())
@@ -2081,6 +2201,76 @@ def long_decode_check(dev: torch.device, arch: str, layers: int, conditioned: bo
     emit(row)
     if err > MODEL_REL:
         raise AssertionError(f"long_shapes decode_32k {cfg.name}: the decode step is {err:.3g} from the prefill of S+1")
+
+
+def long_hybrid_decode_check(dev: torch.device, dtype: str) -> None:
+    """Jamba-1.5-large at full width in JAMBA_LONG_LAYERS layers, 1 row, in
+    ``dtype``, through ``decode_32k``'s steps, at capacity factor experts /
+    top-k (8), where ``capacity_per_seq`` reaches the prompt's length and no
+    pair is dropped, as ``tests/test_torch_hybrid_long.py`` runs jamba-smoke
+    on the CPU (and ``tests/test_torch_long_attention.py`` DeepSeek-V3): the
+    greedy decode step after a prefill of JAMBA_CHECK_PROMPT[dtype] tokens
+    against the prefill of those tokens and the step's id.  Its logits over
+    the real vocabulary and the state after it (the attention layer's k and
+    v, each SSD layer's ``ssm`` and ``conv``) within MODEL_REL (bf16; the
+    ``ssm`` state HYBRID_STATE_REL) or TRAIN_F32_REL (f32, TF32 off) of the
+    largest value.  The longer prefill scans in chunks of 1 (``scan_chunk``
+    of an odd length), the shorter in 256: K4 on both, and the step on
+    neither.  The weights are ``condition_attention``'s, as the DeepSeek-V3
+    check's.  The f32 run, at the longest prompt whose f32 weights (51.8
+    GB) and experts fit the card, holds the step's logic to 1e-4; the bf16
+    run at the config's dtype shows what rounding leaves of it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.ssm import scan_chunk
+
+    base = dataclasses.replace(get_config("jamba-1.5-large-398b"), num_layers=JAMBA_LONG_LAYERS, dtype=dtype)
+    moe = base.moe
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.experts_per_token))
+    bars = dict.fromkeys(("logits", "k", "v", "ssm", "conv"), TRAIN_F32_REL if dtype == "float32" else MODEL_REL)
+    if dtype == "bfloat16":
+        bars["ssm"] = HYBRID_STATE_REL
+    shape, prefill, decode = long_steps(cfg, "decode_32k", 1, dev)
+    s = JAMBA_CHECK_PROMPT[dtype]
+    t0 = time.monotonic()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = condition_attention(cfg, Model(cfg).init(seed=0, device=dev))
+        tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=torch.Generator().manual_seed(15))
+        before = _kernel_launches()
+        logits, cache = prefill(params, {"tokens": tokens}, seq_cap=shape.seq_len)
+        ids = logits.argmax(dim=-1)[:, None]
+        launches = {"prefill": since(before)}
+        before = _kernel_launches()
+        step_logits, cache = decode(params, cache, ids, s)
+        launches["step"] = since(before)
+        before = _kernel_launches()
+        whole, whole_cache = prefill(params, {"tokens": torch.cat([tokens, ids.cpu()], dim=1)},
+                                     seq_cap=shape.seq_len)
+        launches["longer_prefill"] = since(before)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    vocab = cfg.vocab_size
+    errs = {"logits": _rel_err(step_logits[..., :vocab], whole[..., :vocab].float().cpu(), "decode logits"),
+            **cache_errors(cache, whole_cache, ("k", "v", "ssm", "conv"))}
+    per_prefill = prefill_launches(cfg)
+    row = {"phase": "long_shapes", "case": f"decode_against_prefill_32k_hybrid_{dtype}", "arch": cfg.name,
+           "dtype": dtype, "layers": cfg.num_layers,
+           "kinds": [f"{kind}{' + moe' if is_moe else ''}" for kind, is_moe in cfg.layer_plan()],
+           "capacity_factor": cfg.moe.capacity_factor, "weights": conditioned_weights(cfg), "rows": 1, "prompt": s,
+           "cache": shape.seq_len, "chunks": {"prefill": scan_chunk(cfg, s), "longer_prefill": scan_chunk(cfg, s + 1)},
+           "launches": launches, "max_rel_err": errs,
+           "same_greedy_ids": bool((step_logits.argmax(-1) == whole.argmax(-1)).all()),
+           "bar": f"logits[..., :{vocab}] and each layer's k, v, ssm, conv: max |decode - prefill of S+1| <= "
+                  f"bar * max |prefill's|", "bars": bars,
+           "seconds": time.monotonic() - t0}
+    emit(row)
+    if launches != {"prefill": per_prefill, "step": dict.fromkeys(per_prefill, 0), "longer_prefill": per_prefill}:
+        raise AssertionError(f"long_shapes hybrid decode check: launches {launches}")
+    if errs.keys() != bars.keys() or any(errs[k] > bars[k] for k in bars):
+        raise AssertionError(f"long_shapes {dtype} hybrid decode check over the bar: {errs}")
 
 
 def long_state_check(dev: torch.device, dtype: str) -> None:
@@ -2134,37 +2324,51 @@ def long_state_check(dev: torch.device, dtype: str) -> None:
 def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
     """The reference's long shapes at full width and depth on one card
     (``long_shapes``), a ``seconds`` line after each case: K3 at
-    ``prefill_32k``'s attention of Qwen3-0.6B, DeepSeek-V3 (MLA), Yi-6B and
-    OLMo-1B and K4 at ``long_500k``'s scan against their plain versions;
+    ``prefill_32k``'s attention of Qwen3-0.6B, DeepSeek-V3 (MLA), Yi-6B,
+    OLMo-1B and Qwen1.5-110B (Jamba-1.5-large's too) and K4 at
+    ``long_500k``'s scan and Jamba's ``prefill_32k`` scan against their
+    plain versions;
     Qwen3-0.6B at ``prefill_32k`` (4 rows of 32,768) and ``decode_32k`` (8
     rows: a prefill of 32,704 tokens into the 32,768-slot cache, then 64
     greedy decode steps to its last slot); the decode step after a 32k
     prompt against the prefill of one token more; DeepSeek-V3 in 4 layers
     at ``prefill_32k`` and ``decode_32k`` (one row each, 64 absorbed decode
     steps over the 32,768-slot latent cache) and its decode check in its 3
-    dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows); Mamba2-780m
+    dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows); Jamba in
+    3 layers (attention + dense, SSD + MoE, SSD + dense: K3 and K4 in one
+    prefill) at ``prefill_32k`` and ``decode_32k`` (2 rows) and its decode
+    step against the prefill of one token more (``long_hybrid_decode_check``);
+    Qwen1.5-110B in 4 layers at ``prefill_32k`` (2 rows); Mamba2-780m
     at ``long_500k`` (a prefill of 524,288 tokens, then 16 decode steps from
     its state); and the state after 524,288 tokens by one chunk against
     another and the recurrent decode, in bf16 and, as its witness, in f32."""
-    k3 = ("flash_attention", "fa_tc_bf16")
     cases = [(f"k3 {arch}", long_k3, (dev, summary, card, arch), {}) for arch in LONG_K3]
+    cases += [(f"k4 {arch}", long_k4, (dev, summary, card, arch), {}) for arch in LONG_K4]
+    jamba, qwen15 = "jamba-1.5-large-398b", "qwen1.5-110b"
     cases += [
-        ("k4", long_k4, (dev, summary, card), {}),
-        ("qwen3-0.6b prefill_32k", long_run, (dev, summary, "qwen3-0.6b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {}),
+        ("qwen3-0.6b prefill_32k", long_run, (dev, summary, "qwen3-0.6b", "prefill_32k", 0, 0, 2, "prefill"), {}),
         ("qwen3-0.6b decode_32k",
-         long_run, (dev, summary, "qwen3-0.6b", "decode_32k", LONG_TAIL, LONG_TAIL, 1, *k3, "decode"), {}),
+         long_run, (dev, summary, "qwen3-0.6b", "decode_32k", LONG_TAIL, LONG_TAIL, 1, "decode"), {}),
         ("qwen3-0.6b decode check", long_decode_check, (dev, "qwen3-0.6b", LONG_CHECK_LAYERS), {}),
         ("deepseek-v3-671b prefill_32k", long_run,
-         (dev, summary, "deepseek-v3-671b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {"layers": LONG_MLA_LAYERS}),
+         (dev, summary, "deepseek-v3-671b", "prefill_32k", 0, 0, 2, "prefill"), {"layers": LONG_MLA_LAYERS}),
         ("deepseek-v3-671b decode_32k", long_run,
-         (dev, summary, "deepseek-v3-671b", "decode_32k", LONG_TAIL, LONG_TAIL, 1, *k3, "decode"),
+         (dev, summary, "deepseek-v3-671b", "decode_32k", LONG_TAIL, LONG_TAIL, 1, "decode"),
          {"layers": LONG_MLA_LAYERS}),
         ("deepseek-v3-671b decode check", long_decode_check,
          (dev, "deepseek-v3-671b", LONG_MLA_CHECK_LAYERS), {"conditioned": True}),
-        ("yi-6b prefill_32k", long_run, (dev, summary, "yi-6b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {}),
-        ("olmo-1b prefill_32k", long_run, (dev, summary, "olmo-1b", "prefill_32k", 0, 0, 2, *k3, "prefill"), {}),
+        ("yi-6b prefill_32k", long_run, (dev, summary, "yi-6b", "prefill_32k", 0, 0, 2, "prefill"), {}),
+        ("olmo-1b prefill_32k", long_run, (dev, summary, "olmo-1b", "prefill_32k", 0, 0, 2, "prefill"), {}),
+        (f"{jamba} prefill_32k", long_run, (dev, summary, jamba, "prefill_32k", 0, 0, 2, "prefill"),
+         {"layers": JAMBA_LONG_LAYERS}),
+        (f"{jamba} decode_32k", long_run, (dev, summary, jamba, "decode_32k", LONG_TAIL, LONG_TAIL, 1, "decode"),
+         {"layers": JAMBA_LONG_LAYERS}),
+        (f"{jamba} decode check bfloat16", long_hybrid_decode_check, (dev, "bfloat16"), {}),
+        (f"{jamba} decode check float32", long_hybrid_decode_check, (dev, "float32"), {}),
+        (f"{qwen15} prefill_32k", long_run, (dev, summary, qwen15, "prefill_32k", 0, 0, 2, "prefill"),
+         {"layers": QWEN15_LAYERS}),
         ("mamba2-780m long_500k", long_run,
-         (dev, summary, "mamba2-780m", "long_500k", 0, LONG_500K_STEPS, 1, "ssd_scan", "ssd_tc_bf16", "prefill"), {}),
+         (dev, summary, "mamba2-780m", "long_500k", 0, LONG_500K_STEPS, 1, "prefill"), {}),
         ("state check bfloat16", long_state_check, (dev, "bfloat16"), {}),
         ("state check float32", long_state_check, (dev, "float32"), {}),
     ]
@@ -2224,16 +2428,25 @@ def train_batch(cfg, b: int, s: int, seed: int) -> dict:
 
 
 def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: list | None = None):
-    """One ``build_train_step`` step of ``cfg`` on ``dev`` from ``params``:
-    its metrics, the gradient leaves it applied (read from its call of
-    ``apply_update``, which only reads them; on the host, copied there from
-    the card) and its MoE layers' route records in call order (the
-    forward pass, then each layer's recompute in the backward pass), taking
-    the expert choices of ``replay`` if given."""
+    """One ``build_train_step`` step of ``cfg`` on ``dev`` from ``params``,
+    as far as the checks read it: its metrics, the gradient leaves it hands
+    ``apply_update`` (on the host, copied there from the card) and its MoE
+    layers' route records in call order (the forward pass, then each
+    layer's recompute in the backward pass), taking the expert choices of
+    ``replay`` if given.  ``apply_update`` is replaced by its first lines,
+    the metrics it returns (the gradients' global norm and the learning
+    rate, by ``optim.global_norm`` and ``optim.lr_schedule``); the update
+    after them, which no check reads, is not run, and the optimizer
+    moments it would write are not made.  On the CPU the update and the
+    zeroed moments of DeepSeek-V3's 3.12 B parameters were most of each
+    step's 82-113 s (``probes_torch/train_step_cpu_profile.py``, the 8 host
+    cores beside an NVIDIA H100 80GB HBM3, 700.00 W); the optimizer is
+    held to the reference in ``tests/test_torch_optim_ckpt.py`` and runs
+    on the card in ``train``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
     import route_check
-    from repro_torch.optim import init_opt_state
+    from repro_torch.optim import global_norm, lr_schedule
     from repro_torch.tree import tree_leaves
 
     rows, seq = batch["tokens"].shape[:2]
@@ -2243,12 +2456,12 @@ def one_train_step(cfg, dev: torch.device, params: dict, batch: dict, replay: li
 
     def update(opt_cfg, params, grads, state):
         seen.extend(g.detach().cpu() for g in tree_leaves(grads))
-        return real_update(opt_cfg, params, grads, state)
+        return params, state, {"grad_norm": global_norm(grads), "lr": lr_schedule(opt_cfg, state["step"] + 1)}
 
     steps.apply_update = update
     try:
         with route_check.RouteRecorder(replay) as routes:
-            _, _, metrics = bundle.fn(params, init_opt_state(bundle.opt_cfg, params), batch)
+            _, _, metrics = bundle.fn(params, {"step": torch.zeros((), dtype=torch.int32, device=dev)}, batch)
     finally:
         steps.apply_update = real_update
     return {k: float(v) for k, v in metrics.items()}, seen, routes
@@ -2294,9 +2507,10 @@ def leaf_errors(dev: torch.device, name: str, g, want, w32, g32) -> dict:
 def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
                       seq: int = CHECK_SEQ, rows: int = CHECK_BATCH, layers: int = 2) -> None:
     """One training step of ``arch`` at full width, ``layers`` layers (and the MTP
-    block where the config has one), on the card against the same step on
-    the CPU from the same parameters (``Model.init(0)`` on the CPU, copied;
-    with ``conditioned`` through ``condition_attention`` first) and one
+    block where the config has one), up to the optimizer's update
+    (``one_train_step``), on the card against the same step on the CPU
+    from the same parameters (``Model.init(0)`` on the card, copied to the
+    host; with ``conditioned`` through ``condition_attention`` first) and one
     seeded packed batch of ``rows`` rows of ``seq`` tokens (``train_batch``:
     MusicGen's four codebooks, InternVL2's vision prefix): the loss (and the
     MTP loss beside it), the global gradient norm and each gradient leaf's
@@ -2337,7 +2551,9 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
     def mark():
         marks.append(time.monotonic())
 
-    host = Model(cfg).init(seed=0, device="cpu")
+    # drawn on the card and copied over: DeepSeek-V3's 3.12 B took 26.2 s to draw on the CPU, 3.5 s so
+    # (probes_torch/train_step_cpu_profile.py, NVIDIA H100 80GB HBM3, 700.00 W)
+    host = tree_map(lambda t: t.cpu(), Model(cfg).init(seed=0, device=dev))
     if conditioned:
         condition_attention(cfg, host)
     batch = train_batch(cfg, rows, seq, seed=6)
@@ -2401,7 +2617,7 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
                   "bar": f"loss, grad_norm (loss_mtp, aux) and every leaf: card vs cpu <= {TRAIN_F32_REL} of "
                   "the largest |cpu value|, TF32 off"},
           **moe_row, "kernel_launches": launches, "cpu_seconds": cpu_s, "seconds": time.monotonic() - t0,
-          "seconds_by_part": dict(zip(("cpu_init", "cpu_bf16_step", "cpu_f32_step", "card_bf16_step",
+          "seconds_by_part": dict(zip(("init_and_copy", "cpu_bf16_step", "cpu_f32_step", "card_bf16_step",
                                        "card_f32_step", "compare"),
                                       np.diff([*marks, time.monotonic()]).tolist())),
           "parts_note": "each step's seconds include copying the parameters over and the gradients to the host"})
@@ -2699,7 +2915,7 @@ def phase_example_serve(dev: torch.device, summary: dict) -> None:
     for arch in ("yi-6b", "olmo-1b"):
         for dtype in ("float32", "bfloat16"):
             phase_model_check(dev, arch, CHECK_SEQ_DENSE, dtype=dtype, conditioned=CONDITIONED[arch, dtype])
-        phase_serve(dev, summary, arch, "flash_attention", "fa_tc_bf16", example=example)
+        phase_serve(dev, summary, arch, example=example)
         release_card()
 
 
@@ -2858,6 +3074,13 @@ def main() -> int:
               phase_model_check, dev, "granite-moe-1b-a400m", 256, conditioned=True)
         timed("model_check jamba-1.5-large-398b 128",
               phase_model_check, dev, "jamba-1.5-large-398b", 128)  # 1 K3 and 1 K4 launch; 23.8 GB of weights
+        release_card()
+        # QKV biases drawn (the reference initialises them to zeros); 10.4 GB of weights, 20.8 in f32
+        for dtype in ("float32", "bfloat16"):
+            timed(f"model_check qwen1.5-110b {QWEN15_CHECK_SEQ} dtype={dtype} drawn=3", phase_model_check, dev,
+                  "qwen1.5-110b", QWEN15_CHECK_SEQ, dtype=dtype, conditioned=CONDITIONED["qwen1.5-110b", dtype],
+                  drawn=3)
+            release_card()
         timed("model_check deepseek-v3-671b 256 dtype=float32",
               phase_model_check, dev, "deepseek-v3-671b", 256, dtype="float32")  # 2 dense MLA layers; 14.8 GB
         release_card()
@@ -2882,20 +3105,21 @@ def main() -> int:
             timed("main", phase_main, ds, dev, summary)
             timed("example", phase_example, ds, dev, summary)
             timed("shards", phase_shards, ds, pathlib.Path(d), dev, summary)
-        timed("serve qwen3-0.6b flash_attention fa_tc_bf16",
-              phase_serve, dev, summary, "qwen3-0.6b", "flash_attention", "fa_tc_bf16")
-        timed("serve mamba2-780m ssd_scan ssd_tc_bf16",
-              phase_serve, dev, summary, "mamba2-780m", "ssd_scan", "ssd_tc_bf16")
-        timed("serve granite-moe-1b-a400m flash_attention fa_tc_bf16",
-              phase_serve, dev, summary, "granite-moe-1b-a400m", "flash_attention", "fa_tc_bf16")
+        timed("serve qwen3-0.6b", phase_serve, dev, summary, "qwen3-0.6b")  # K3
+        timed("serve mamba2-780m", phase_serve, dev, summary, "mamba2-780m")  # K4
+        timed("serve granite-moe-1b-a400m", phase_serve, dev, summary, "granite-moe-1b-a400m")
         release_card()
-        timed("serve deepseek-v3-671b flash_attention fa_tc_bf16 layers=4",
-              phase_serve, dev, summary, "deepseek-v3-671b", "flash_attention", "fa_tc_bf16", layers=4)
+        timed("serve deepseek-v3-671b layers=4", phase_serve, dev, summary, "deepseek-v3-671b", layers=4)
         release_card()
-        timed("serve musicgen-medium flash_attention fa_tc_bf16",
-              phase_serve, dev, summary, "musicgen-medium", "flash_attention", "fa_tc_bf16")  # through the step builders
-        timed("serve internvl2-2b flash_attention fa_tc_bf16",
-              phase_serve, dev, summary, "internvl2-2b", "flash_attention", "fa_tc_bf16")
+        # K3 on the attention layer and K4 on the 3 SSD layers of each prefill; 46.1 GB of weights
+        timed(f"serve jamba-1.5-large-398b layers={JAMBA_SERVE_LAYERS}",
+              phase_serve, dev, summary, "jamba-1.5-large-398b", layers=JAMBA_SERVE_LAYERS)
+        release_card()
+        timed(f"serve qwen1.5-110b layers={QWEN15_LAYERS}", phase_serve, dev, summary, "qwen1.5-110b",
+              layers=QWEN15_LAYERS)
+        release_card()
+        timed("serve musicgen-medium", phase_serve, dev, summary, "musicgen-medium")  # through the step builders
+        timed("serve internvl2-2b", phase_serve, dev, summary, "internvl2-2b")
         release_card()
         timed("long_shapes", phase_long_shapes, dev, summary, smi)
         timed("train_check qwen3-0.6b", phase_train_check, dev, "qwen3-0.6b")

@@ -1,5 +1,5 @@
-"""DeepSeek-V3's MLA, Yi-6B and OLMo-1B at the reference's long serving
-shapes, cut to the CPU's size.
+"""DeepSeek-V3's MLA, Yi-6B, OLMo-1B and Qwen1.5-110B at the reference's
+long serving shapes, cut to the CPU's size.
 
 The reference's ``prefill_32k`` and ``decode_32k`` (``configs/base.py``)
 take every config's attention past ``_sdpa``'s 2,048-key threshold, where
@@ -23,8 +23,9 @@ those shapes:
     (``capacity_per_seq``): at the config's own factor a prefill of 4,097
     tokens may keep a pair that the prefill of 4,096 dropped, which is the
     reference's semantics and not a fault of either path;
-  - yi-smoke (4 heads over 2 kv heads) and olmo-smoke (MHA): the prefill's
-    logits and every layer's k and v within 2e-5.
+  - yi-smoke (4 heads over 2 kv heads), olmo-smoke (MHA) and qwen1.5-smoke
+    (4 heads over 2 kv heads, QKV biases drawn): the prefill's logits and
+    every layer's k and v within 2e-5.
 """
 
 import dataclasses
@@ -156,11 +157,16 @@ def test_deepseek_absorbed_decode_repeats_the_longer_prefill(reference_stack):  
             assert (err := rel_err(logits, again)) <= PREFILL_REL, f"decode step {t} against prefill {err:.3g}"
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b", "qwen1.5-110b"])
 def test_dense_prefill_past_the_chunked_attention_threshold(reference_stack, arch):  # noqa: F811
     """2 x 4,096 tokens through the ``prefill_32k`` step: logits and every
-    layer's k and v within 2e-5 of the largest reference value."""
-    ref_model, ref_params, cfg, params = smoke_pair(reference_stack, arch)
+    layer's k and v within 2e-5 of the largest reference value.  Qwen1.5's
+    QKV biases, which the reference initialises to zeros, are drawn
+    (``draw_zero_leaves``, the same values in both packages)."""
+    drawn = 5 if arch == "qwen1.5-110b" else None
+    ref_model, ref_params, cfg, params = smoke_pair(reference_stack, arch, drawn=drawn)
+    if drawn is not None:
+        assert cfg.qkv_bias and params["segments"][0]["blocks"][0]["mixer"]["bq"].any()
     tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     prefill, _ = long_steps(cfg, "prefill_32k", S, B)
     launches = fa.flash_attention.launches

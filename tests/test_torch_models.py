@@ -38,7 +38,7 @@ from repro_torch.models import Model, params_from_reference, tree_to_numpy  # no
 from repro_torch.models.params import ParamDef, init_params, param_count  # noqa: E402
 from repro_torch.tree import tree_items  # noqa: E402
 from torch_parity import (  # noqa: E402,F401
-    SWAP_GAP, condition_attention, prefill_at_positions, reference_routes, reference_stack,
+    SWAP_GAP, ZERO_LEAVES, condition_attention, prefill_at_positions, reference_routes, reference_stack, smoke_pair,
 )
 
 import route_check  # noqa: E402  (tools/, put on the path by torch_parity)
@@ -171,6 +171,50 @@ def test_prefill_and_decode_match_the_reference(reference_stack, monkeypatch, ar
                     _close(g, w, dtype, f"{when} cache {name}", rel)
     for t in range(STEPS):
         _close(got[2][t], want[2][t], dtype, f"decode step {t} logits", rel)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-110b", "mamba2-780m", "jamba-1.5-large-398b", "musicgen-medium"])
+def test_prefill_and_decode_on_drawn_zero_init_leaves(reference_stack, monkeypatch, arch):  # noqa: F811
+    """The reference initialises the QKV biases, the SSD block's conv bias,
+    ``A_log`` and ``dt_bias`` and LayerNorm's bias to zeros, so the test
+    above holds the port's bias adds, A = -exp(A_log) and dt's shift at
+    zero only.  Here they are drawn (``draw_zero_leaves``, the same values
+    in both packages), in f32: the prefill's logits and cache, 4 forced
+    decode steps' logits and the final cache within 1e-4 (the reference's
+    expert choices replayed, and the port's own equal to them)."""
+    ref = reference_stack
+    ref_model, ref_params, cfg, params = smoke_pair(ref, arch, drawn=3)
+    drawn = {name: t for name, t in tree_items(params) if name.split("'")[-2] in ZERO_LEAVES}
+    assert drawn and all(t.any() for t in drawn.values())
+    model = Model(cfg)
+    rng = np.random.default_rng(0)
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, S)
+    tokens = rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
+    forced = rng.integers(0, cfg.vocab_size, (STEPS, B, 1, *shape[2:]), dtype=np.int32)
+
+    def ref_prefill(tok):
+        logits, cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tok)})
+        return logits, [{"blocks": [{name: _grow(name, x) for name, x in blk.items()} for blk in seg["blocks"]]}
+                        for seg in cache]
+
+    with reference_routes(monkeypatch) as want_routes:
+        want = _serve(ref_prefill, lambda c, tok, pos: ref_model.decode_step(ref_params, c, jnp.asarray(tok),
+                                                                             jnp.int32(pos)), tokens, forced)
+    with route_check.RouteRecorder(replay=want_routes.idx if cfg.moe else None) as got_routes:
+        got = _serve(lambda tok: model.prefill(params, {"tokens": torch.from_numpy(tok)}, seq_cap=S + STEPS),
+                     lambda c, tok, pos: model.decode_step(params, c, torch.from_numpy(tok), pos),
+                     tokens, forced, lambda c: jax.tree.map(torch.clone, c))
+    if cfg.moe is not None:
+        assert route_check.compare(cfg, want_routes.probs, got_routes.probs) == []
+    _close(got[0], want[0], "float32", "prefill logits")
+    for when, item in (("prefill", 1), ("after decode", 3)):
+        for seg, want_seg in zip(got[item], want[item]):
+            for blk, want_blk in zip(seg["blocks"], want_seg["blocks"]):
+                assert blk.keys() == want_blk.keys()
+                for name in blk:
+                    _close(blk[name], want_blk[name], "float32", f"{when} cache {name}")
+    for t in range(STEPS):
+        _close(got[2][t], want[2][t], "float32", f"decode step {t} logits")
 
 
 def test_params_cross_with_their_dtypes_and_nesting(reference_stack):  # noqa: F811

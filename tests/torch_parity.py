@@ -251,13 +251,15 @@ def rel_err(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def smoke_pair(ref, arch: str, seed: int = 0):
+def smoke_pair(ref, arch: str, seed: int = 0, drawn: int | None = None):
     """``arch``'s smoke config in f32 in both packages and the reference's
-    seed-``seed`` weights: (reference model, its params, the port's
-    config, the same params as the port's CPU tensors)."""
+    seed-``seed`` weights (with ``drawn``, its zero-initialised leaves drawn
+    by ``draw_zero_leaves`` from that seed): (reference model, its params,
+    the port's config, the same params as the port's CPU tensors)."""
     import dataclasses
 
     import jax
+    import jax.numpy as jnp
 
     from repro_torch import configs as port_configs
     from repro_torch.models import params_from_reference
@@ -265,8 +267,48 @@ def smoke_pair(ref, arch: str, seed: int = 0):
     ref_cfg = dataclasses.replace(ref.get_smoke_config(arch), dtype="float32")
     cfg = dataclasses.replace(port_configs.get_smoke_config(arch), dtype="float32")
     ref_model = ref.Model(ref_cfg)
-    ref_params = ref_model.init(jax.random.PRNGKey(seed))
-    return ref_model, ref_params, cfg, params_from_reference(jax.tree.map(np.asarray, ref_params), device="cpu")
+    params_np = jax.tree.map(np.asarray, ref_model.init(jax.random.PRNGKey(seed)))
+    if drawn is not None:
+        params_np = draw_zero_leaves(params_np, drawn)
+    return ref_model, jax.tree.map(jnp.asarray, params_np), cfg, params_from_reference(params_np, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the leaves the reference initialises to zeros, drawn
+# ---------------------------------------------------------------------------
+
+# the QKV biases, the SSD block's conv bias, A_log and dt_bias, and LayerNorm's bias
+# (src/repro/models/attention.py:49-51, ssm.py:142-144, layers.py:28)
+ZERO_LEAVES = ("bq", "bk", "bv", "conv_b", "A_log", "dt_bias", "bias")
+ZERO_LEAF_STD = 0.5
+
+
+def draw_zero_leaves(params, seed: int):
+    """``params`` with every leaf named in ZERO_LEAVES, which the reference
+    initialises to zeros (so a check on its own weights holds the bias add,
+    the conv bias, A and dt's shift at zero only), drawn from N(0, 0.5^2)
+    by ``np.random.default_rng(seed)``, leaf by leaf in sorted key order,
+    and rounded to the leaf's dtype.  Either package's tree takes the same
+    values: a new tree is returned, whose numpy leaves (the reference's, as
+    numpy) are new arrays; torch leaves (the port's, on any device) are
+    written in place, so the tree passed in holds the values too."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {key: walk(node[key], key) for key in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if name not in ZERO_LEAVES:
+            return node
+        values = (rng.standard_normal(tuple(node.shape)) * ZERO_LEAF_STD).astype(np.float32)
+        if isinstance(node, np.ndarray):
+            return values.astype(node.dtype)
+        import torch
+
+        return node.copy_(torch.from_numpy(values))  # rounds to the leaf's dtype as numpy's astype does
+
+    return walk(params)
 
 
 def long_steps(cfg, name: str, seq: int, rows: int):
