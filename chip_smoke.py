@@ -154,6 +154,13 @@ BF16_BAR, F32_BAR = "1 bf16 ulp", 2e-5
 TIMED_RUNS = 30
 HOST_COVER_CYCLES = 200_000  # a device sleep of ~0.1 ms, longer than a wrapper's host time
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TOL, atol and rtol
+# bf16 K3 against its plain version, beside FA_TOL: max |got - want| over max |want| of each output row
+# (one query of one head).  A row that sees n keys of unit-normal q, k, v has values ~sqrt(e / n), under
+# FA_TOL's atol from n ~ 10k on, so FA_TOL alone passes a wrong row at 32k.  Both sides compute the same
+# f32 arithmetic and round to bf16, so a sound row is at most one bf16 ulp of its largest value off
+# (2**-8 .. 2**-7 of it); the bar is two ulps.  On an H100 every case read at most 2**-7, and faults
+# planted in the kernel (probes_torch/k3_wgmma.py --faults) 0.29-1.9, one of them within FA_TOL at 32k
+FA_ROW_REL = 2.0**-6
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
 # bf16: the SSD state of Jamba's decode step against the prefill of one token more.  The last tokens'
@@ -1078,6 +1085,25 @@ def within_tol(got: torch.Tensor, want: torch.Tensor, tols: dict = FA_TOL) -> di
     return row
 
 
+def row_rel(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The scale-aware bar beside FA_TOL: for each output row (the last
+    dim: one query of one head), max |got - want| over max |want|; the
+    largest over the rows, the query index of its row, and the rows over
+    ``FA_ROW_REL``.  Taken 2**26 elements at a time."""
+    hd, sq = got.shape[-1], got.shape[-2]
+    rows_g, rows_w = got.reshape(-1, hd), want.reshape(-1, hd)
+    step = max(1, (1 << 26) // hd)
+    worst, at, over = 0.0, 0, 0
+    for i in range(0, rows_g.shape[0], step):
+        g, w = rows_g[i:i + step].float(), rows_w[i:i + step].float()
+        rel = (g - w).abs().amax(dim=1) / w.abs().amax(dim=1).clamp_min(1e-30)
+        k = int(rel.argmax())
+        if float(rel[k]) > worst:
+            worst, at = float(rel[k]), i + k
+        over += int((rel > FA_ROW_REL).sum())
+    return {"max_row_rel_err": worst, "worst_row_query": at % sq, "row_bar": FA_ROW_REL, "over_row_bar": over}
+
+
 def causal_pairs(sq: int, skv: int, causal: bool) -> int:
     """(query, key) pairs the mask admits for one (batch, head): row i of q
     sees keys 0 .. i + skv - sq."""
@@ -1086,26 +1112,30 @@ def causal_pairs(sq: int, skv: int, causal: bool) -> int:
     return sq * (skv - sq + 1) + sq * (sq - 1) // 2
 
 
-def k3_tiles(sq: int, skv: int, causal: bool, block_k: int, rows: int = 64, keys: int = 64) -> dict:
-    """What the bf16 kernel's loop bounds give for one (batch, head): blocks
-    of 64 query rows, 64-key sub-tiles loaded (K and V each) and multiplied
-    by a warp of 16 rows, and the share of those on the diagonal (masked
-    element by element)."""
+def k3_tiles(sq: int, skv: int, causal: bool, hd: int, block_k: int) -> dict:
+    """What the bf16 kernel's loop bounds give for one (batch, head), on
+    its own plan (``flash_attention.wgmma_plan``, read from the library):
+    blocks of 128 query rows, two
+    warpgroups of 64; key stages loaded (K and V each, up to the block's
+    diagonal) and multiplied by a warpgroup (up to its own), and the share
+    of those on a warpgroup's diagonal (masked element by element)."""
+    from repro_torch.kernels.flash_attention import wgmma_plan
+
+    plan = wgmma_plan(hd, block_k)
+    rows, wg_rows, keys = plan["rows"], plan["warpgroup_rows"], plan["stage_keys"]
+    per_step = block_k // keys  # a softmax step's stages, loaded and multiplied whole
     blocks = loaded = multiplied = diagonal = 0
     for q0 in range(0, sq, rows):
         blocks += 1
         last = min(q0 + rows, sq) - 1 + skv - sq
-        n_sub = min(skv // keys, last // keys + 1) if causal else skv // keys
-        steps = -(-n_sub // (block_k // keys))
-        loaded += n_sub
-        for w0 in range(q0, min(q0 + rows, sq), 16):
-            first = w0 + skv - sq
-            for sub in range(steps * (block_k // keys)):
-                if sub < n_sub and (not causal or sub * keys <= first + 15):
-                    multiplied += 1
-                    diagonal += causal and sub * keys + keys - 1 > first
-    return {"blocks": blocks, "kv_tiles_loaded": loaded, "warp_tiles": multiplied,
-            "diagonal_share": diagonal / multiplied}
+        loaded += (min(skv // block_k, last // block_k + 1) if causal else skv // block_k) * per_step
+        for r0 in range(q0, min(q0 + rows, sq), wg_rows):
+            first, wg_last = r0 + skv - sq, min(r0 + wg_rows, sq) - 1 + skv - sq
+            n = (min(skv // block_k, wg_last // block_k + 1) if causal else skv // block_k) * per_step
+            multiplied += n
+            diagonal += sum(causal and k * keys + keys - 1 > first for k in range(n))
+    return {"blocks": blocks, "stage_keys": keys, "ring_slots": plan["ring_slots"], "smem_bytes": plan["smem_bytes"],
+            "kv_stages_loaded": loaded, "warpgroup_stages": multiplied, "diagonal_share": diagonal / multiplied}
 
 
 def restart_positions(b: int, s: int, gen: torch.Generator) -> torch.Tensor:
@@ -1150,7 +1180,8 @@ def library_attention(q, k, v, causal: bool):
 
 def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
     """K3 against its plain version on the card, each case on the route its
-    dtype picks (bf16: the tensor-core kernel; f32: the CUDA-core kernel);
+    dtype picks (bf16: the tensor-core kernel, also held to FA_ROW_REL;
+    f32: the CUDA-core kernel);
     times at the serving shape for both routes, with each kernel's ptxas
     registers and spills."""
     from repro_torch.kernels import _build
@@ -1181,7 +1212,7 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         # 128 + 64 rope dims, v of 128 zero-padded to 192
         ("mla", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 128, 128),
         ("mla_f32", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, f32, True, 128, 128),
-        ("mla_block_k64", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 64, 64),  # no spills at 64
+        ("mla_block_k64", 8, 128, 128, SERVE_PROMPT, SERVE_PROMPT, 192, bf16, True, 64, 64),  # one stage a step
         ("mla_ragged_rows", 1, 16, 16, 96, 192, 192, bf16, True, 32, 64),  # sq not a multiple of 64 rows
         # the position route (q_pos >= kv_pos) on restart positions: Qwen3's serving shape on both
         # kernels, block_k 64, MLA's head dim, and rows past sq with keys padded at INT32_MAX
@@ -1190,6 +1221,18 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         ("pos_block_k64", 8, 16, 8, SERVE_PROMPT, SERVE_PROMPT, 128, bf16, True, 64, 64),
         ("pos_mla", 2, 16, 16, 256, 256, 192, bf16, True, 64, 64),
         ("pos_ragged_rows", 2, 4, 2, 96, 192, 128, bf16, True, 32, 64),
+        # a consumer warpgroup wholly past sq (sq an odd multiple of 64, as decode_32k's prefill of
+        # 32,704 tokens): it multiplies nothing, empties the block's slots and stores no row
+        ("wg_past_sq", 1, 4, 2, 192, 384, 128, bf16, True, 64, 64),
+        ("wg_past_sq_hd32", 1, 2, 2, 192, 384, 32, bf16, True, 64, 64),
+        ("wg_past_sq_one_block", 1, 2, 1, 64, 64, 64, bf16, True, 64, 64),
+        ("pos_wg_past_sq", 1, 4, 2, 192, 384, 128, bf16, True, 64, 64),
+        # the remaining (head dim, block_k, mask) corners of the bf16 kernel's instances
+        ("hd32_block_k64", 2, 4, 2, 256, 256, 32, bf16, True, 64, 64),
+        ("noncausal_hd32", 2, 4, 2, 256, 256, 32, bf16, False, 128, 128),
+        ("noncausal_hd192", 2, 4, 2, 256, 256, 192, bf16, False, 128, 128),
+        ("pos_hd64_block_k64", 2, 4, 2, 256, 256, 64, bf16, True, 64, 64),
+        ("pos_hd192_block_k128", 2, 16, 16, 256, 256, 192, bf16, True, 128, 128),
     ]
     ptxas = _build.ptxas("flash_attention")
     entry = summary["flash_attention"]
@@ -1211,10 +1254,13 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         row = {"phase": "kernels", "kernel": "flash_attention", "case": name, "q": [b, h, sq, hd],
                "kv": [b, hkv, skv, hd], "dtype": str(dtype), "causal": causal, "block_q": bq, "block_k": bk,
                "route": fa.kernel_route(dtype, hd, bk), **within_tol(got, want)}
+        if dtype == bf16:
+            row.update(row_rel(got, want))
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
-        if row["over_bar"]:
+        if row["over_bar"] or row.get("over_row_bar"):
             emit(row)
-            raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over the bar")
+            raise AssertionError(f"flash_attention {name}: {row['over_bar']} elements over FA_TOL, "
+                                 f"{row.get('over_row_bar')} rows over FA_ROW_REL")
         if "mla" in name and got[..., MLA_V_DIM:].any():
             raise AssertionError(f"flash_attention {name}: the zero-padded v's output columns are not zero")
         if name.startswith("pos"):
@@ -1258,17 +1304,27 @@ def phase_flash(dev: torch.device, summary: dict, card: str) -> None:
         if name in ("granite", "musicgen", "yi", "olmo", "h64_kv8", "mla"):
             entry[name] = {key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if name == "musicgen":  # the instance its prefill runs
-            instance = f"fa_tc_bf16<{hd},{bk // 64}>"
+            instance = f"fa_wgmma_bf16<{hd},{bk},false>"
             row["ptxas"] = entry[name]["ptxas"] = {instance: ptxas.get(instance)}
         if name in ("mla_f32", "mla_block_k64"):
             entry["mla"][f"{name[4:]}_ms"] = row["ms"]
         if name == "main":
+            row["wrapper_host_ms"] = host_ms(lambda: fa.flash_attention(q, k, v, **kw), dev)  # four tensor maps encoded
             row["ptxas"] = ptxas  # both kernels, each instantiation
-            per_head = k3_tiles(sq, skv, causal, bk)
-            staged = b * h * (per_head["kv_tiles_loaded"] * 2 * 64 * hd + sq * hd) * q.element_size()
+            limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+            row["plans"] = {f"hd{d},block_k{n}": fa.wgmma_plan(d, n) for d in fa.TC_HEAD_DIMS for n in fa.TC_BLOCK_KS}
+            for plan_name, plan in row["plans"].items():  # the kernel's own plan against the card's limit
+                if not plan["smem_bytes"] <= plan["smem_max"] == limit:
+                    raise AssertionError(f"flash_attention: plan {plan_name} {plan} against the card's {limit} bytes")
+            per_head = k3_tiles(sq, skv, causal, hd, bk)
+            staged = b * h * (per_head["kv_stages_loaded"] * 2 * per_head["stage_keys"] * hd + sq * hd) * q.element_size()
             row["tiles"] = {**per_head, "staged_bytes": staged, "staged_tb_per_s": staged / row["ms"] * 1e-9,
-                            "note": "blocks, kv_tiles_loaded and warp_tiles per (batch, head); staged_bytes: q and every K/V tile the blocks copy in, whole call"}
-            entry.update({key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                            "note": "per (batch, head): blocks of 128 query rows (two warpgroups of 64), K+V stages "
+                                    "of stage_keys keys loaded by TMA (kv_stages_loaded, each K and V) and multiplied "
+                                    "by a warpgroup (warpgroup_stages); staged_bytes: q and every K/V tile the blocks "
+                                    "copy in, whole call"}
+            entry.update({key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                    "wrapper_host_ms")})
         emit(row)
 
 
@@ -1692,7 +1748,7 @@ def trace_step(dev: torch.device, fn, *kernel_symbols: str) -> dict:
 
 
 # each hand-written kernel a prefill launches once for every layer of its kinds, and its CUDA name
-PREFILL_KERNELS = {"flash_attention": (("attn", "mla"), "fa_tc_bf16"), "ssd_scan": (("ssd",), "ssd_tc_bf16")}
+PREFILL_KERNELS = {"flash_attention": (("attn", "mla"), "fa_wgmma_bf16"), "ssd_scan": (("ssd",), "ssd_tc_bf16")}
 
 
 def prefill_launches(cfg) -> dict:
@@ -1919,7 +1975,7 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     192 as ``mla_prefill`` pads it; Yi-6B's q (2,32,32768,128) against k/v
     (2,4,32768,128); OLMo-1B's (2,16,32768,128), MHA; Qwen1.5-110B's q
     (2,64,32768,128) against k/v (2,8,32768,128), which is Jamba-1.5-large's
-    too (``K3_SHAPE_OF``).  Held to FA_TOL of
+    too (``K3_SHAPE_OF``).  Held to FA_TOL and FA_ROW_REL of
     its plain version (on the rows and q heads ``LONG_K3`` names, with
     their kv heads), timed beside SDPA and its bound.  The bound counts the
     real work, 2 * (qk dims + v dims) operations a causal pair a head, so
@@ -1950,11 +2006,12 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
            "kv": [b, hkv, s, hd], "v_dims": vd, "dtype": "torch.bfloat16", "block_k": 128,
            "route": fa.kernel_route(torch.bfloat16, hd, 128),
            "held_to_plain": f"rows 0..{rows - 1} of {b}, q heads 0..{heads - 1} of {h} (every element there)",
-           **within_tol(got[:rows, :heads], want)}
+           **within_tol(got[:rows, :heads], want), **row_rel(got[:rows, :heads], want)}
     del want
-    if row["over_bar"]:
+    if row["over_bar"] or row["over_row_bar"]:
         emit(row)
-        raise AssertionError(f"flash_attention at {cfg.name}'s prefill_32k: {row['over_bar']} elements over the bar")
+        raise AssertionError(f"flash_attention at {cfg.name}'s prefill_32k: {row['over_bar']} elements over "
+                             f"FA_TOL, {row['over_row_bar']} rows over FA_ROW_REL")
     if got[..., vd:].any():
         raise AssertionError(f"flash_attention at {cfg.name}'s prefill_32k: the zero-padded v's columns are not zero")
     del got
@@ -1974,7 +2031,8 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     entry = summary["flash_attention"]
     entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
     entry[key] = {name: row[name] for name in (
-        "ms", "plain_ms", "block_k64_ms", "library_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")
+        "ms", "plain_ms", "block_k64_ms", "library_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err",
+        "max_row_rel_err")
         if name in row}
     entry[key]["launches"] = 0  # long_run adds the path's
     emit(row)
@@ -3015,6 +3073,8 @@ def phase_examples(dev: torch.device, summary: dict) -> None:
 
 def kernel_summary() -> dict:
     """The ``kernels`` line's entries, one a kernel, before any phase fills them."""
+    from repro_torch.kernels import flash_attention as fa
+
     summary = {
         name: {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/dequant_normalize.cu",
                "replaces": f"src/repro/kernels/dequant_normalize.py:{line}", "launches": 0,
@@ -3029,6 +3089,8 @@ def kernel_summary() -> dict:
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:88", "launches": 0, "max_abs_err": 0.0,
         "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+        # the main path's (bf16) kernel at its serving shape; f32 runs fa_cuda_f32
+        "cuda_route": fa.kernel_route(torch.bfloat16, 128, 128),
     }
     summary["ssd_scan"] = {
         "name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -126,17 +126,19 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``_ZN..2tc10fa_tc_bf16ILi128ELi2EE...`` → ``fa_tc_bf16<128,2>``: the
-    last name of a nested mangled name and its integer template arguments."""
+    """``_ZN..2wg13fa_wgmma_bf16ILi128ELi128ELb0EE...`` →
+    ``fa_wgmma_bf16<128,128,false>``: the last name of a nested mangled
+    name and its integer and bool template arguments."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled
     name = mangled
     while (m := re.match(r"\d+", rest)):
         n = int(m.group(0))
         name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
-    args = re.match(r"I((?:Li\d+E)+)E", rest)
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
     if args is None:
         return name
-    return name + "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    values = [v if kind == "i" else ("false", "true")[int(v)] for kind, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+    return name + "<" + ",".join(values) + ">"
 
 
 def ptxas(name: str) -> dict[str, dict[str, int]]:

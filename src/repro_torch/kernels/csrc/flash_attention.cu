@@ -2,64 +2,88 @@
 // right-aligned to kv, online softmax over key tiles with f32 m, l and acc.
 //
 // Replaces the Pallas TPU kernel flash_attention of
-// src/repro/kernels/flash_attention.py (body _flash_kernel).
+// src/repro/kernels/flash_attention.py (body _flash_kernel, called at :88).
 //
-// Bound: bytes at the serving shapes.  One call reads q, k and v once and
-// writes o once; at q (8,16,512,128), k and v (8,8,512,128) in bf16 that is
+// Bound.  One call reads q, k and v once and writes o once, and does 4 hd
+// operations for each (query, key) pair the mask keeps.  At the serving
+// shapes it is bytes: q (8,16,512,128) and k, v (8,8,512,128) in bf16 are
 // 50.3 MB, 0.0150 ms at 3.35 TB/s, against 8.61 GFLOP of causal work,
-// 0.0087 ms on the bf16 tensor cores and 0.13 ms on the f32 CUDA cores.
-// So the products must run on the tensor cores, and the kernel must read
-// each K and V tile from device memory once per 64 query rows while the
-// previous tile is multiplied.
+// 0.0087 ms on the bf16 tensor cores.  At 32k keys it is operations: q
+// (4,16,32768,128) over k, v (4,8,32768,128) is 17.6 TFLOP, 17.79 ms at
+// 989 TFLOP/s.  So the products run on the tensor cores at Hopper's own
+// rate (wgmma), the exponentials on the SFU stay off their path, and each
+// K and V tile is read from device memory once per 128 query rows.
 //
 // Two kernels, routed by dtype:
 //
-// fa_tc_bf16 (bf16 q, k, v): FlashAttention-2's shape on mma.sync.
-//   - A block of 4 warps owns 64 query rows of one (batch, head), 16 rows a
-//     warp; the kv head is head / (H / Hkv), read in place (GQA without
-//     repeating K or V).  Blocks run the heaviest causal query tiles first.
-//   - S = Q.K^T and O += P.V are mma.sync.m16n8k16 with bf16 operands and
-//     f32 accumulators.  Fragments come from shared memory by ldmatrix
-//     (.trans for V); the Q fragments stay in registers for the whole key
-//     loop.  The P fragment of P.V is the S accumulator rounded to bf16 in
-//     registers: exactly the body's p.astype(v.dtype).
-//   - K and V tiles of 64 keys go through a ring of 4 shared-memory slots
-//     filled by cp.async in the order they are used (the K sub-tiles of a
-//     softmax step, then its V sub-tiles), three tiles ahead of the one
-//     being multiplied.  Rows are padded by 16 bytes, so the 8 rows an
-//     ldmatrix phase reads fall in 8 distinct 16-byte bank groups.  At hd
-//     128: 17 KB of Q and 68 KB of ring, two blocks an SM.
-//   - hd 192 (DeepSeek's MLA: q and k 128 + 64 rope dims, v zero-padded
-//     from 128 by the caller) holds 24 n8 output blocks, 96 f32 registers
-//     of acc a thread beside up to 64 of scores.  There the Q fragments are
-//     read from shared memory for each k16 step instead of kept in 48 more
-//     registers, and the ring is 3 slots, two tiles ahead: 25 KB of Q and
-//     75 KB of ring, so two blocks still share an SM (4 slots would be
-//     125 KB, one block an SM).
-//   - The softmax step is the wrapper's block_k (64 or 128 keys, one or two
-//     64-key sub-tiles whose scores are all in registers before the step's
-//     max is taken), with the body's arithmetic in f32: s = (q.k) * sm_scale,
-//     NEG_INF (-2**30, finite) above the diagonal, m_new = max(m, max s),
-//     corr = exp(m - m_new), p = exp(s - m_new), l = l * corr + sum(p),
-//     acc = acc * corr + p_bf16 . v; exp(x) is ex2.approx(x * log2(e)) on
-//     the SFU (2 ulp).  Sub-tiles wholly above a warp's
-//     diagonal are neither multiplied nor exponentiated (their p is 0), and
-//     those above the block's are not loaded.  Output acc / max(l, 1e-20),
-//     staged through shared memory for 16-byte stores.  Rows past sq are
-//     zero in Q and never stored, so sq need not be a multiple of 64.
+// fa_wgmma_bf16 (bf16 q, k, v): a producer warp feeding wgmma by TMA.
+//   - A block of 3 warpgroups owns 128 query rows of one (batch, head): two
+//     consumer warpgroups of 64 rows each, and a producer warpgroup of which
+//     one thread issues every copy (setmaxnreg gives its registers to the
+//     consumers: 40 against 232 a thread).  The kv head is head / (H / Hkv),
+//     read in place.  Blocks run the heaviest causal query tiles first.
+//   - Q (128 rows), then each softmax step's K and V tiles, arrive by TMA
+//     (rank-3 tensor maps (b*h or b*hkv, s, hd), so a box past sq fills with
+//     zeros inside its own head) in a ring of shared-memory slots, one tile
+//     a slot, with a full and an empty mbarrier each.  The producer loads
+//     K, then V, of each step in the order the consumers use them; under
+//     the index mask it loads no step above the block's diagonal.  The
+//     position route loads every step.
+//   - Tiles are stored as TMA swizzles them, 128 bytes a row (a panel of 64
+//     columns; hd 128 is two panels, hd 192 three); hd 32's 64-byte rows
+//     take the 64-byte swizzle.  See wgmma_bf16.cuh for the descriptors.
+//   - S = Q.K^T is wgmma.m64nNk16 with both operands in shared memory, N
+//     the stage's keys, f32 accumulators.  The softmax runs in the
+//     consumer's registers.  O += P.V is wgmma.m64n<hd>k16 with P as the A
+//     operand from registers, the S accumulator rounded to bf16 (exactly
+//     the body's p.astype(v.dtype)), and V read as an MN-major B operand
+//     straight from its tile: nothing is transposed by hand.
+//   - What bounds it at length is keeping the tensor cores busy while the
+//     SFU takes the exponentials (64 a thread a step).  So a warpgroup
+//     issues step j's S and step j-1's P.V together and runs step j's
+//     softmax while they are in flight (acc takes step j's rescaling just
+//     before step j's P.V), and the two warpgroups take turns to issue
+//     (named barriers), so that one's softmax overlaps the other's
+//     products.  Between the first issue and the last wait nothing
+//     branches on a lane: ptxas serializes wgmmas around a divergent path,
+//     so the steady loop is straight-line and the first and last steps are
+//     peeled.
+//   - The softmax step is the wrapper's block_k, with the body's arithmetic
+//     in f32: s = (q.k) * sm_scale, NEG_INF (-2**30, finite) above the
+//     diagonal, m_new = max(m, max s) over all the step's keys, corr =
+//     exp(m - m_new), p = exp(s - m_new), l = l * corr + sum(p), acc = acc
+//     * corr + p_bf16 . v; exp(x) is ex2.approx(x * log2(e)) on the SFU (2
+//     ulp), x * log2(e) - m * log2(e) taken as one fma.  A warpgroup
+//     multiplies the steps up to its own diagonal and only empties the
+//     slots of the block's later ones (their p is 0).  Output acc / max(l,
+//     1e-20) in bf16, staged in the warpgroup's own rows of Q's tile in the
+//     same swizzle and stored by TMA, which drops rows past sq.
+//   - Shared memory, against the 232,448 bytes a block can use (1 KB of
+//     alignment and the barriers besides; fa_wgmma_plan below exports it,
+//     flash_attention.wgmma_plan reads it):
+//       hd 32:  Q 8 KB,  stages of block_k keys, 4 slots of 4 / 8 KB;
+//       hd 64:  Q 16 KB, stages of block_k keys, 4 slots of 8 / 16 KB;
+//       hd 128: Q 32 KB, stages of block_k keys, 4 slots of 16 / 32 KB
+//               (two K+V stages: 160 KB at block_k 128);
+//       hd 192: Q 48 KB, stages of 64 keys, 6 slots of 24 KB (three K+V
+//               stages, 192 KB; 128-key stages would take 240 KB), so a
+//               block_k 128 softmax step spans two stages.
+//     Registers: acc (hd / 2), the step's scores (block_k / 2) and the
+//     previous step's p in bf16 (block_k / 4) a thread: 192 at hd 192,
+//     within the 232, no spills.
+//   - On the host, a launch takes its four tensor maps from a cache keyed
+//     by address and shape (encoding them is a driver call), and sets the
+//     shared-memory limit once an instance and device.
 //
 // Position mask (both kernels): with q_pos (b, sq) and kv_pos (b, skv), int32,
 //   a key is kept iff q_pos >= kv_pos -- the reference's mask for rows that
 //   pack documents restarting at 0, repeat or reverse positions -- instead
 //   of by index.  It is a template flag (BY_POS), so the index route's code
-//   is what it was.  Every K/V tile is loaded; fa_tc_bf16 multiplies a 64-key
-//   sub-tile for a warp only where the sub-tile's smallest key position is
-//   at most the warp's largest query position (a warp reads two positions
-//   a lane and takes the minimum), and masks each score by the key's
-//   position, read from device memory (L1) beside the product.  fa_cuda_f32
-//   stages and scores every key.  A row that sees no key at all (a padded
-//   query row) is then the average over the sub-tiles its warp multiplied,
-//   not over every key as in the plain version: callers drop such rows.
+//   is what it was.  Both kernels stage and score every key and mask each
+//   score by its key's position (fa_wgmma_bf16 reads them from device
+//   memory, L1, after the product; no block skips a step).  A row that sees no key at all (a
+//   padded query row) then averages over every key, as the plain version
+//   does; callers drop such rows.
 //
 // fa_cuda_f32 (f32 q, k, v): the first design, on the f32 CUDA cores (the
 //   tensor cores' TF32 cannot hold the 2e-5 f32 bar).  One block per (b,
@@ -68,11 +92,15 @@
 //   takes their max, then the softmax step, then pass 2 accumulates p.v
 //   with each lane owning hd/32 output dims.
 
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include <atomic>
+#include <mutex>
+
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -87,23 +115,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ---------------------------------------------------------------------------
-// fa_tc_bf16: bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-namespace tc {
-
-constexpr int kRows = 64;  // query rows per block
-constexpr int kWarps = 4;  // 16 rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kKeys = 64;  // keys per staged K or V tile
-constexpr int kPad = 8;    // bf16 after each staged row (16 bytes)
-
-// The K/V ring's slots, and whether the Q fragments stay in registers (else
-// each k16 step reads them from shared memory), by head dim.
-__host__ __device__ constexpr int ring_slots(int hd) { return hd > 128 ? 3 : 4; }
-__host__ __device__ constexpr bool q_in_registers(int hd) { return hd <= 128; }
-
 // 2**x on the SFU (ex2.approx, 2 ulp; a subnormal result flushes to 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -111,252 +122,353 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// The S tile of keys 16kk..16kk+15 (n8 blocks 2kk and 2kk+1) is, rounded
-// to bf16, the A fragment of P.V for those keys (mma_bf16.cuh's layouts).
-template <int HD, int NSUB, bool BY_POS>  // NSUB = block_k / 64; BY_POS: mask by q_pos >= kv_pos
-__global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
-    const __nv_bfloat16* __restrict__ q,  // (b, h, sq, hd)
-    const __nv_bfloat16* __restrict__ k,  // (b, hkv, skv, hd)
-    const __nv_bfloat16* __restrict__ v,  // (b, hkv, skv, hd)
-    __nv_bfloat16* __restrict__ o,        // (b, h, sq, hd)
-    const int* __restrict__ qp,           // (b, sq) when BY_POS
-    const int* __restrict__ kp,           // (b, skv) when BY_POS
-    int h, int hkv, int sq, int skv, float sm_scale, int causal) {
-  constexpr int STRIDE = HD + kPad;  // bf16 per staged row
-  constexpr int TILE = kKeys * STRIDE;
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  constexpr int KSTEPS = HD / 16;  // k16 steps of q.k
-  constexpr int SBLK = kKeys / 8;  // n8 blocks of a sub-tile's scores
-  constexpr int DBLK = HD / 8;     // n8 blocks of the output
-  constexpr int kSlots = ring_slots(HD);
-  constexpr bool kQRegs = q_in_registers(HD);
-  constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2**(x log2(e))
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);  // (64, STRIDE); the output's staging at the end
-  __nv_bfloat16* ring = qs + kRows * STRIDE;                        // kSlots x (64, STRIDE)
+// ---------------------------------------------------------------------------
+// fa_wgmma_bf16: bf16 on the tensor cores, wgmma over TMA-staged tiles
+// ---------------------------------------------------------------------------
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+namespace wg {
+
+constexpr int kWgRows = 64;                        // query rows of a consumer warpgroup
+constexpr int kConsumers = 2;                      // consumer warpgroups a block
+constexpr int kRows = kConsumers * kWgRows;        // query rows a block
+constexpr int kThreads = (kConsumers + 1) * 128;   // and the producer warpgroup
+constexpr int kConsumerWarps = kConsumers * 4;     // arrivals that empty a slot
+constexpr int kSmemMax = 232448;                   // what a block can use on an H100
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65,536
+
+// The plan by head dim and block_k (fa_wgmma_plan exports it).
+__host__ __device__ constexpr int stage_keys(int hd, int block_k) { return hd > 128 ? 64 : block_k; }
+__host__ __device__ constexpr int ring_slots(int hd) { return hd > 128 ? 6 : 4; }
+__host__ __device__ constexpr int panel_cols(int hd) { return hd < 64 ? hd : 64; }  // a 128-byte row (64 at hd 32)
+__host__ __device__ constexpr int smem_bytes(int hd, int block_k) {
+  return 1024 + kRows * hd * 2 + ring_slots(hd) * stage_keys(hd, block_k) * hd * 2 + 8 * (1 + 2 * ring_slots(hd));
+}
+
+template <int HD, int BK, bool BY_POS>  // BK = block_k, the softmax step; BY_POS: mask by q_pos >= kv_pos
+__global__ void __launch_bounds__(kThreads, 1) fa_wgmma_bf16(
+    const __grid_constant__ CUtensorMap q_map,  // q as (b*h, sq, hd), box (panel, kRows)
+    const __grid_constant__ CUtensorMap k_map,  // k as (b*hkv, skv, hd), box (panel, stage keys)
+    const __grid_constant__ CUtensorMap v_map,  // v alike
+    const __grid_constant__ CUtensorMap o_map,  // o as q, box (panel, kWgRows)
+    const int* __restrict__ qp,                 // (b, sq) when BY_POS
+    const int* __restrict__ kp,                 // (b, skv) when BY_POS
+    int h, int hkv, int sq, int skv, float sm_scale, int causal) {
+  constexpr int SK = stage_keys(HD, BK);  // keys a stage
+  constexpr int NST = BK / SK;            // stages a softmax step
+  constexpr int SLOTS = ring_slots(HD);
+  constexpr int PC = panel_cols(HD);
+  constexpr int PANELS = HD / PC;
+  constexpr int ROWB = PC * 2;            // bytes of a swizzled row
+  constexpr uint32_t ATOM = 8 * ROWB;     // 8 rows: the descriptors' stride byte offset
+  constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : 2;
+  constexpr int Q_PANEL = kRows * ROWB;
+  constexpr int T_PANEL = SK * ROWB;
+  constexpr int TILE = SK * HD * 2;
+  constexpr int QBYTES = kRows * HD * 2;
+  constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2**(x log2(e))
+  static_assert(smem_bytes(HD, BK) <= kSmemMax, "the shared-memory plan does not fit");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;  // swizzled tiles sit on 1024-byte boundaries
+  uint8_t* const q_g = smem_raw + (q_s - raw);
+  const uint32_t ring_s = q_s + QBYTES;
+  const uint32_t q_bar = ring_s + SLOTS * TILE;
+  const uint32_t full0 = q_bar + 8;            // full[slot]: the tile landed
+  const uint32_t empty0 = full0 + 8 * SLOTS;   // empty[slot]: every consumer warp is done with it
+
   const int b = blockIdx.z;
   const int head = blockIdx.y;
   const int kvh = head / (h / hkv);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int q_rows = min(kRows, sq - q0);
   const int q_offset = skv - sq;  // row i sits at key position i + q_offset
-  const int block_last = q0 + q_rows - 1 + q_offset;
-  const int n_sub_all = skv / kKeys;
-  const int n_sub = causal && !BY_POS ? min(n_sub_all, block_last / kKeys + 1) : n_sub_all;
-  const int n_steps = (n_sub + NSUB - 1) / NSUB;
-  const int n_tiles = n_steps * 2 * NSUB;  // per step: its K sub-tiles, then its V sub-tiles
+  // Key steps of BK keys (NST stages each) loaded for the block: up to its
+  // diagonal under the index mask, else all (skv is a multiple of BK).
+  const int n_steps_all = skv / BK;
+  const int n_steps =
+      causal && !BY_POS ? min(n_steps_all, (min(q0 + kRows, sq) - 1 + q_offset) / BK + 1) : n_steps_all;
 
-  const __nv_bfloat16* qb = q + ((static_cast<int64_t>(b) * h + head) * sq + q0) * HD;
-  const int64_t kv_base = (static_cast<int64_t>(b) * hkv + kvh) * skv * HD;
-  const __nv_bfloat16* kb = k + kv_base;
-  const __nv_bfloat16* vb = v + kv_base;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // Tile i of the sequence into slot i % kSlots; one commit group per call,
-  // empty past the end and for sub-tiles above the block's diagonal.
-  auto load_tile = [&](int i) {
-    if (i < n_tiles) {
-      const int r = i % (2 * NSUB);
-      const int sub = (i / (2 * NSUB)) * NSUB + r % NSUB;
-      if (sub < n_sub) {
-        const __nv_bfloat16* src = (r < NSUB ? kb : vb) + static_cast<int64_t>(sub) * kKeys * HD;
-        __nv_bfloat16* dst = ring + (i % kSlots) * TILE;
-        for (int c = threadIdx.x; c < kKeys * CHUNKS; c += kThreads) {
-          const int row = c / CHUNKS;
-          const int col = (c % CHUNKS) * 8;
-          cp_async16(smem_addr(dst + row * STRIDE + col), src + static_cast<int64_t>(row) * HD + col);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // so the compiler knows it is warp-uniform
+  if (wg == kConsumers) {  // the producer: one thread issues every copy, in the consumers' order
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      prefetch_map(&q_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      mbar_expect_tx(q_bar, QBYTES);
+      for (int p = 0; p < PANELS; ++p) tma_load_3d(q_s + p * Q_PANEL, &q_map, q_bar, p * PC, q0, b * h + head);
+      const int kv_head = b * hkv + kvh;
+      int slot = 0;
+      uint32_t phase = 1;  // a fresh slot counts as emptied
+      for (int step = 0; step < n_steps; ++step) {
+        for (int kind = 0; kind < 2; ++kind) {  // the step's K tiles, then its V tiles
+          for (int j = 0; j < NST; ++j) {
+            mbar_wait(empty0 + 8 * slot, phase);
+            mbar_expect_tx(full0 + 8 * slot, TILE);
+            for (int p = 0; p < PANELS; ++p)
+              tma_load_3d(ring_s + slot * TILE + p * T_PANEL, kind ? &v_map : &k_map, full0 + 8 * slot, p * PC,
+                          (step * NST + j) * SK, kv_head);
+            if (++slot == SLOTS) slot = 0, phase ^= 1;
+          }
         }
       }
     }
-    cp_async_commit();
-  };
-
-  for (int c = threadIdx.x; c < kRows * CHUNKS; c += kThreads) {
-    const int row = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    __nv_bfloat16* dst = qs + row * STRIDE + col;
-    if (row < q_rows)
-      cp_async16(smem_addr(dst), qb + static_cast<int64_t>(row) * HD + col);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    return;
   }
-  for (int i = 0; i < kSlots - 1; ++i) load_tile(i);  // Q rides in tile 0's group
+  setmaxnreg_inc<kConsumerRegs>();
 
-  // This thread's rows: g and g + 8 of the warp's 16.
-  const int warp_row = q0 + warp * 16;
-  const int warp_first = warp_row + q_offset;
-  const int warp_last = warp_first + 15;
+  // A consumer warpgroup: rows r0 .. r0 + 63; this thread's rows are g and
+  // g + 8 of its warp's 16.
+  const int warp = __shfl_sync(0xffffffffu, (threadIdx.x / 32) % 4, 0);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = q0 + wg * kWgRows;
+  const int wg_rows = min(kWgRows, sq - r0);  // <= 0: wholly past sq, nothing to compute
+  const int wg_last = r0 + wg_rows - 1 + q_offset;
+  const int warp_first = r0 + warp * 16 + q_offset;
   int pos0 = warp_first + g;
   int pos1 = pos0 + 8;
-  int warp_qmax = warp_last;
   const int* kpos_b = nullptr;
   if constexpr (BY_POS) {
     const int* qpos_b = qp + static_cast<int64_t>(b) * sq;
     kpos_b = kp + static_cast<int64_t>(b) * skv;
-    pos0 = warp_row + g < sq ? __ldg(qpos_b + warp_row + g) : INT32_MIN;  // rows past sq see nothing
-    pos1 = warp_row + g + 8 < sq ? __ldg(qpos_b + warp_row + g + 8) : INT32_MIN;
-    warp_qmax = __reduce_max_sync(0xffffffffu, max(pos0, pos1));
+    const int row = r0 + warp * 16 + g;
+    pos0 = row < sq ? __ldg(qpos_b + row) : INT32_MIN;  // rows past sq see nothing
+    pos1 = row + 8 < sq ? __ldg(qpos_b + row + 8) : INT32_MIN;
   }
 
-  uint32_t qf[kQRegs ? KSTEPS : 1][4];
-  float acc[DBLK][4];
+  float acc[HD / 2];
 #pragma unroll
-  for (int d = 0; d < DBLK; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float m_row[2] = {kNegInf, kNegInf};
   float l_row[2] = {0.f, 0.f};  // this thread's share of the row sums; the quad adds them up at the end
-  float s[NSUB][SBLK][4];
-  bool live[NSUB];
+  float corr[2];                // a softmax step's rescaling of acc, applied before its P.V
+  float s[NST][SK / 2];         // a step's scores, then its p in f32
+  uint32_t pa[NST][SK / 16][4]; // a step's p in bf16: P.V's A operand
+  int k_slot[NST], v_slot[NST];
+  // The steps this warpgroup multiplies: up to its own diagonal (0 past sq).
+  const int wg_steps = wg_rows <= 0 ? 0 : causal && !BY_POS ? min(n_steps, wg_last / BK + 1) : n_steps;
 
-  // Wait for tile i, let every warp be done with tile i - 1, and reuse its
-  // slot for tile i + kSlots - 1.
-  auto next_tile = [&](int i) -> const __nv_bfloat16* {
-    cp_async_wait<kSlots - 2>();
-    __syncthreads();
-    load_tile(i + kSlots - 1);
-    return ring + (i % kSlots) * TILE;
+  const uint32_t q_wg = q_s + wg * kWgRows * ROWB;
+  // The tiles of a step, as the producer sends them (its K tiles, then its
+  // V tiles): wait until they have landed, note their slots; empty them.
+  auto wait_k = [&](int step) {
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      const int index = step * 2 * NST + j;
+      k_slot[j] = index % SLOTS;
+      mbar_wait(full0 + 8 * k_slot[j], (index / SLOTS) & 1);
+    }
   };
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int tile0 = step * 2 * NSUB;
-    // scores of the step's sub-tiles
+  auto wait_v = [&](int step) {
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      const __nv_bfloat16* ks = next_tile(tile0 + j);
-      const __nv_bfloat16* q_frag = qs + (warp * 16 + lane % 16) * STRIDE + (lane / 16) * 8;
-      if constexpr (kQRegs) {
-        if (tile0 + j == 0) {
+    for (int j = 0; j < NST; ++j) {
+      const int index = step * 2 * NST + NST + j;
+      v_slot[j] = index % SLOTS;
+      mbar_wait(full0 + 8 * v_slot[j], (index / SLOTS) & 1);
+    }
+  };
+  auto release = [&](const int (&slots)[NST]) {  // every warp's lane 0
+    if (lane == 0) {
 #pragma unroll
-          for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], smem_addr(q_frag + kk * 16));
-        }
+      for (int j = 0; j < NST; ++j) mbar_arrive(empty0 + 8 * slots[j]);
+    }
+  };
+  // S = Q.K^T of a step's stages, in flight after the call
+  auto issue_s = [&]() {
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      const uint32_t k_tile = ring_s + k_slot[j] * TILE;
+      fence_regs(s[j]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk * 16 / PC) * Q_PANEL + (kk * 16 % PC) * 2;  // panel, then 32 bytes a k16 step
+        const uint32_t kcol = (kk * 16 / PC) * T_PANEL + (kk * 16 % PC) * 2;
+        wgmma_ss<SK>(s[j], smem_desc(q_wg + col, 16, ATOM, LAYOUT), smem_desc(k_tile + kcol, 16, ATOM, LAYOUT),
+                     kk > 0);
       }
-      const int sub = step * NSUB + j;
-      const int k0 = sub * kKeys;
+    }
+    wgmma_commit();
+  };
+  // acc = acc * corr + p_bf16 . v, in flight after the call
+  auto issue_pv = [&]() {
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      acc[4 * i] *= corr[0];
+      acc[4 * i + 1] *= corr[0];
+      acc[4 * i + 2] *= corr[1];
+      acc[4 * i + 3] *= corr[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      const uint32_t v_tile = ring_s + v_slot[j] * TILE;
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < SK / 16; ++kk) fence_regs(pa[j][kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SK / 16; ++kk)  // 16 keys a step, V's rows: MN-major, panels T_PANEL apart
+        wgmma_rs<HD>(acc, pa[j][kk], smem_desc(v_tile + kk * 16 * ROWB, T_PANEL, ATOM, LAYOUT), 1);
+    }
+    wgmma_commit();
+  };
+  // The step's softmax on its scores (rows g and g + 8): m, l and corr,
+  // and p in f32 in s.  Maxima and sums in 4 partials a row, for latency.
+  auto softmax = [&](int step) {
+    float mx[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r][0] = mx[r][1] = mx[r][2] = mx[r][3] = m_row[r];
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+      const int k0 = (step * NST + j) * SK;
       if constexpr (BY_POS) {
-        int kmin = INT32_MAX;
-        if (sub < n_sub) kmin = min(__ldg(kpos_b + k0 + lane), __ldg(kpos_b + k0 + lane + 32));
-        live[j] = sub < n_sub && __reduce_min_sync(0xffffffffu, kmin) <= warp_qmax;
-      } else {
-        live[j] = sub < n_sub && (!causal || k0 <= warp_last);
-      }
-      if (!live[j]) continue;
 #pragma unroll
-      for (int nb = 0; nb < SBLK; ++nb) s[j][nb][0] = s[j][nb][1] = s[j][nb][2] = s[j][nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t qa[4];
-        if constexpr (kQRegs) {
-          qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
-        } else {
-          ldmatrix_x4(qa, smem_addr(q_frag + kk * 16));
-        }
-#pragma unroll
-        for (int np = 0; np < SBLK / 2; ++np) {  // keys 16np .. 16np+15
-          uint32_t bf[4];
-          const int key = np * 16 + lane % 8 + (lane / 16) * 8;
-          const int col = kk * 16 + ((lane / 8) % 2) * 8;
-          ldmatrix_x4(bf, smem_addr(ks + key * STRIDE + col));
-          mma(s[j][2 * np], qa, bf[0], bf[1]);
-          mma(s[j][2 * np + 1], qa, bf[2], bf[3]);
-        }
-      }
-      if constexpr (BY_POS) {
-#pragma unroll
-        for (int nb = 0; nb < SBLK; ++nb) {
-          const int2 kpos = __ldg(reinterpret_cast<const int2*>(kpos_b + k0 + nb * 8 + 2 * t));
+        for (int n = 0; n < SK / 8; ++n) {
+          const int2 kpos = __ldg(reinterpret_cast<const int2*>(kpos_b + k0 + n * 8 + 2 * t));
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x = s[j][nb][e] * sm_scale;
+            float x = s[j][4 * n + e] * sm_scale;
             if ((e % 2 ? kpos.y : kpos.x) > (e < 2 ? pos0 : pos1)) x = kNegInf;
-            s[j][nb][e] = x;
+            s[j][4 * n + e] = x;
           }
         }
       } else {
-        const bool diagonal = causal && k0 + kKeys - 1 > warp_first;
+        const bool diagonal = causal && k0 + SK - 1 > warp_first;
 #pragma unroll
-        for (int nb = 0; nb < SBLK; ++nb) {
+        for (int n = 0; n < SK / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x = s[j][nb][e] * sm_scale;
-            if (diagonal && k0 + nb * 8 + 2 * t + (e % 2) > (e < 2 ? pos0 : pos1)) x = kNegInf;
-            s[j][nb][e] = x;
+            float x = s[j][4 * n + e] * sm_scale;
+            if (diagonal && k0 + n * 8 + 2 * t + (e % 2) > (e < 2 ? pos0 : pos1)) x = kNegInf;
+            s[j][4 * n + e] = x;
           }
         }
       }
-    }
-
-    // the step's softmax, rows g and g + 8
-    float m_new[2] = {m_row[0], m_row[1]};
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      if (!live[j]) continue;  // all NEG_INF: the max is m's or another sub-tile's
-#pragma unroll
-      for (int nb = 0; nb < SBLK; ++nb) {
-        m_new[0] = fmaxf(m_new[0], fmaxf(s[j][nb][0], s[j][nb][1]));
-        m_new[1] = fmaxf(m_new[1], fmaxf(s[j][nb][2], s[j][nb][3]));
+      for (int n = 0; n < SK / 8; ++n) {
+        mx[0][n % 4] = fmaxf(mx[0][n % 4], fmaxf(s[j][4 * n], s[j][4 * n + 1]));
+        mx[1][n % 4] = fmaxf(mx[1][n % 4], fmaxf(s[j][4 * n + 2], s[j][4 * n + 3]));
       }
     }
-    float corr[2];
+    float m_log2[2], sum[2][4];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-      corr[r] = exp2_approx((m_row[r] - m_new[r]) * kLog2e);
-      m_row[r] = m_new[r];
-      l_row[r] *= corr[r];
+      float m_new = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+      m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 1));
+      m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 2));
+      corr[r] = exp2_approx((m_row[r] - m_new) * kLog2e);
+      m_row[r] = m_new;
+      m_log2[r] = m_new * kLog2e;
+      sum[r][0] = sum[r][1] = sum[r][2] = sum[r][3] = 0.f;
     }
 #pragma unroll
-    for (int d = 0; d < DBLK; ++d) {
-      acc[d][0] *= corr[0];
-      acc[d][1] *= corr[0];
-      acc[d][2] *= corr[1];
-      acc[d][3] *= corr[1];
-    }
+    for (int j = 0; j < NST; ++j) {
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      if (!live[j]) continue;
-#pragma unroll
-      for (int nb = 0; nb < SBLK; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2_approx((s[j][nb][e] - m_new[e / 2]) * kLog2e);
-          l_row[e / 2] += p;
-          s[j][nb][e] = p;
-        }
+      for (int i = 0; i < SK / 2; ++i) {
+        const int r = (i / 2) % 2;  // elements 4n, 4n+1: row g; 4n+2, 4n+3: row g + 8
+        const float p = exp2_approx(fmaf(s[j][i], kLog2e, -m_log2[r]));
+        sum[r][(i / 4) % 4] += p;
+        s[j][i] = p;
       }
     }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_row[r] = l_row[r] * corr[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+  };
+  auto pack_p = [&]() {  // keys 16kk .. 16kk+15 of each stage as P.V's A operand, p rounded to bf16
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < SK / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[j][kk][e] = pack_bf16x2(s[j][8 * kk + 2 * e], s[j][8 * kk + 2 * e + 1]);
+      }
+    }
+  };
 
-    // acc += p . v, p rounded to bf16
+  // The two consumer warpgroups take turns to issue their products (named
+  // barriers 3 + wg: "warpgroup wg may issue"), so that one's softmax runs
+  // while the other's products do.  Each takes n_steps + 1 turns; warpgroup
+  // 1 lets warpgroup 0 go first, and warpgroup 0 takes the last pass.
+  const int other = 1 - wg;
+  auto take_turn = [&]() { named_barrier(3 + wg, 2 * 128); };
+  auto pass_turn = [&]() { named_barrier_arrive(3 + other, 2 * 128); };
+  if (wg == 1) pass_turn();
+
+  mbar_wait(q_bar, 0);
+  if (wg_steps > 0) {  // step 0's scores and softmax
+    wait_k(0);
+    take_turn();
+    issue_s();
+    pass_turn();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      const __nv_bfloat16* vs = next_tile(tile0 + NSUB + j);
-      if (!live[j]) continue;
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        const uint32_t pa[4] = {
-            pack_bf16(s[j][2 * kk][0], s[j][2 * kk][1]),
-            pack_bf16(s[j][2 * kk][2], s[j][2 * kk][3]),
-            pack_bf16(s[j][2 * kk + 1][0], s[j][2 * kk + 1][1]),
-            pack_bf16(s[j][2 * kk + 1][2], s[j][2 * kk + 1][3]),
-        };
-#pragma unroll
-        for (int dp = 0; dp < DBLK / 2; ++dp) {  // output dims 16dp .. 16dp+15
-          uint32_t bf[4];
-          const int key = kk * 16 + lane % 8 + ((lane / 8) % 2) * 8;
-          const int col = dp * 16 + (lane / 16) * 8;
-          ldmatrix_x4_trans(bf, smem_addr(vs + key * STRIDE + col));
-          mma(acc[2 * dp], pa, bf[0], bf[1]);
-          mma(acc[2 * dp + 1], pa, bf[2], bf[3]);
-        }
-      }
-    }
+    for (int j = 0; j < NST; ++j) fence_regs(s[j]);
+    release(k_slot);
+    softmax(0);
+    pack_p();
+  } else {
+    take_turn();
+    pass_turn();
   }
+  // Step it's S = Q.K^T and step it - 1's P.V in flight together, step it's
+  // softmax while they run; no branch between the first issue and the last
+  // wait (ptxas serializes wgmmas around a divergent path).
+  for (int it = 1; it < wg_steps; ++it) {
+    wait_k(it);
+    wait_v(it - 1);
+    take_turn();
+    issue_s();
+    issue_pv();
+    pass_turn();
+    wgmma_wait<1>();  // this step's scores
+#pragma unroll
+    for (int j = 0; j < NST; ++j) fence_regs(s[j]);
+    softmax(it);
+    wgmma_wait<0>();  // the previous step's P.V
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < NST; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < SK / 16; ++kk) fence_regs(pa[j][kk]);
+    }
+    release(k_slot);
+    release(v_slot);
+    pack_p();
+  }
+  if (wg_steps > 0) {  // the last step's P.V
+    wait_v(wg_steps - 1);
+    take_turn();
+    issue_pv();
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(v_slot);
+  }
+  for (int step = wg_steps; step < n_steps; ++step) {  // steps past this warpgroup's diagonal: empty their slots
+    wait_k(step);
+    release(k_slot);
+    wait_v(step);
+    release(v_slot);
+    take_turn();
+    pass_turn();
+  }
+  if (wg == 0) take_turn();
+  if (wg_rows <= 0) return;
 
-  // acc / max(l, 1e-20), staged in the warp's own 16 rows of qs (no other
-  // warp reads them), then 16-byte stores.
+  // acc / max(l, 1e-20) in bf16, staged in the warpgroup's own rows of Q's
+  // tile (its products are done) in Q's swizzle, then stored by TMA.
   float l_sum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -365,41 +477,128 @@ __global__ void __launch_bounds__(kThreads, 2) fa_tc_bf16(
     l_sum[r] += __shfl_xor_sync(0xffffffffu, l_sum[r], 2);
     l_sum[r] = fmaxf(l_sum[r], 1e-20f);
   }
-  __nv_bfloat16* os = qs + warp * 16 * STRIDE;
-  __syncwarp();  // every lane's ldmatrix of these rows is done
+  uint8_t* const out_g = q_g + wg * kWgRows * ROWB;
 #pragma unroll
-  for (int d = 0; d < DBLK; ++d) {
-    *reinterpret_cast<__nv_bfloat162*>(os + g * STRIDE + d * 8 + 2 * t) =
-        __floats2bfloat162_rn(acc[d][0] / l_sum[0], acc[d][1] / l_sum[0]);
-    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * STRIDE + d * 8 + 2 * t) =
-        __floats2bfloat162_rn(acc[d][2] / l_sum[1], acc[d][3] / l_sum[1]);
+  for (int i = 0; i < HD / 8; ++i) {  // the n8 block of columns 8i .. 8i+7
+    const int col = i * 8 % PC;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + g + 8 * half;
+      const int swz = ROWB == 128 ? r % 8 : (r / 2) % 4;
+      const int at = (i * 8 / PC) * Q_PANEL + r * ROWB + (((col / 8) ^ swz) * 16) + 4 * t;
+      *reinterpret_cast<uint32_t*>(out_g + at) =
+          pack_bf16x2(acc[4 * i + 2 * half] / l_sum[half], acc[4 * i + 2 * half + 1] / l_sum[half]);
+    }
   }
-  __syncwarp();
-  __nv_bfloat16* ob = o + ((static_cast<int64_t>(b) * h + head) * sq + warp_row) * HD;
-  for (int c = lane; c < 16 * CHUNKS; c += 32) {
-    const int row = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    if (warp * 16 + row < q_rows)
-      *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(row) * HD + col) =
-          *reinterpret_cast<const uint4*>(os + row * STRIDE + col);
+  fence_async_shared();
+  named_barrier(1 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int p = 0; p < PANELS; ++p) tma_store_3d(&o_map, q_wg + p * Q_PANEL, p * PC, r0, b * h + head);
+    tma_store_wait();
   }
 }
 
-template <int HD, int NSUB, bool BY_POS>
+// cuTensorMapEncodeTiled, a driver call, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The map of `heads` contiguous (rows, hd) bf16 matrices, a box of
+// `box_rows` rows by one panel of columns, swizzled as the kernel reads it.
+cudaError_t encode(CUtensorMap* map, const void* base, int heads, int rows, int hd, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t pc = panel_cols(hd);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2, static_cast<cuuint64_t>(rows) * hd * 2};
+  const cuuint32_t box[3] = {pc, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          pc * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Maps already encoded, by (address, heads, rows, hd, box rows): a map is
+// a function of those alone, so a cached one is exact however the memory
+// under it was reused.  A serving prefill launches with the same few
+// addresses batch after batch; this keeps the encoding off its host time.
+struct MapKey {
+  const void* base;
+  int heads, rows, hd, box_rows;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && heads == o.heads && rows == o.rows && hd == o.hd && box_rows == o.box_rows;
+  }
+};
+constexpr int kMapBits = 8;
+constexpr int kMapCache = 1 << kMapBits;  // direct-mapped entries
+
+cudaError_t cached_map(CUtensorMap* map, const void* base, int heads, int rows, int hd, int box_rows) {
+  static std::mutex mu;
+  static MapKey keys[kMapCache] = {};
+  static CUtensorMap maps[kMapCache];
+  const MapKey key{base, heads, rows, hd, box_rows};
+  uint64_t x = reinterpret_cast<uintptr_t>(base) ^ (static_cast<uint64_t>(heads) << 40) ^
+               (static_cast<uint64_t>(rows) << 20) ^ (static_cast<uint64_t>(hd) << 8) ^ box_rows;
+  const int i = static_cast<int>((x * 0x9E3779B97F4A7C15ull) >> (64 - kMapBits));
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (keys[i] == key && base != nullptr) {
+      *map = maps[i];
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = encode(map, base, heads, rows, hd, box_rows);
+  if (err == cudaSuccess) {
+    std::lock_guard<std::mutex> lock(mu);
+    keys[i] = key;
+    maps[i] = *map;
+  }
+  return err;
+}
+
+template <int HD, int BK, bool BY_POS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
                    int h, int hkv, int sq, int skv, float sm_scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (kRows + ring_slots(HD) * kKeys) * (HD + kPad);
-  auto kernel = fa_tc_bf16<HD, NSUB, BY_POS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  CUtensorMap qm, km, vm, om;
+  cudaError_t err = cached_map(&qm, q, b * h, sq, HD, kRows);
+  if (err == cudaSuccess) err = cached_map(&km, k, b * hkv, skv, HD, stage_keys(HD, BK));
+  if (err == cudaSuccess) err = cached_map(&vm, v, b * hkv, skv, HD, stage_keys(HD, BK));
+  if (err == cudaSuccess) err = cached_map(&om, o, b * h, sq, HD, kWgRows);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = smem_bytes(HD, BK);
+  auto kernel = fa_wgmma_bf16<HD, BK, BY_POS>;
+  // The shared-memory limit is set once an instance and device (bit d of
+  // `set`), not on every launch.
+  static std::atomic<uint64_t> set{0};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit == 0 || !(set.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    set.fetch_or(bit, std::memory_order_release);
   }
   const dim3 grid((sq + kRows - 1) / kRows, h, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), qp, kp, h, hkv, sq, skv, sm_scale,
-      causal);
+  kernel<<<grid, kThreads, smem, stream>>>(qm, km, vm, om, qp, kp, h, hkv, sq, skv, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -407,8 +606,8 @@ template <int HD, bool BY_POS>
 cudaError_t launch_bk(const void* q, const void* k, const void* v, void* o, const int* qp, const int* kp, int b,
                       int h, int hkv, int sq, int skv, int block_k, float sm_scale, int causal, cudaStream_t s) {
   switch (block_k) {
-    case 64: return launch<HD, 1, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, sm_scale, causal, s);
-    case 128: return launch<HD, 2, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, sm_scale, causal, s);
+    case 64: return launch<HD, 64, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, sm_scale, causal, s);
+    case 128: return launch<HD, 128, BY_POS>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, sm_scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -426,7 +625,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, cons
   }
 }
 
-}  // namespace tc
+}  // namespace wg
+
 
 // ---------------------------------------------------------------------------
 // fa_cuda_f32: f32 on the CUDA cores
@@ -617,7 +817,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, cons
 
 }  // namespace
 
-// dtype 0 = bfloat16: fa_tc_bf16, hd 32, 64, 128 or 192, block_k 64 or 128.
+// dtype 0 = bfloat16: fa_wgmma_bf16, hd 32, 64, 128 or 192, block_k 64 or 128.
 // dtype 1 = float32: fa_cuda_f32, hd 32, 64, 128, 192 or 256, any block_k.
 // q, k, v and o alike; h % hkv == 0; sq <= skv when causal; skv % block_k
 // == 0.  q_pos (b, sq) and kv_pos (b, skv), int32, 8-byte aligned, both or
@@ -631,15 +831,30 @@ extern "C" int fa_launch(const void* q, const void* k, const void* v, void* o, c
   const int* kp = static_cast<const int*>(kv_pos);
   if ((qp == nullptr) != (kp == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (qp != nullptr) {
-    if (dtype == 0) return tc::launch_hd<true>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, 1, s);
+    if (dtype == 0) return wg::launch_hd<true>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, 1, s);
     if (dtype == 1) return f32::launch_hd<true>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, 1, s);
   } else {
     if (dtype == 0)
-      return tc::launch_hd<false>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
+      return wg::launch_hd<false>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
     if (dtype == 1)
       return f32::launch_hd<false>(q, k, v, o, qp, kp, b, h, hkv, sq, skv, hd, block_k, sm_scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// fa_wgmma_bf16's plan at (hd, block_k), as the kernel takes it: out[0..6]
+// = query rows a block, rows a consumer warpgroup, keys a K or V stage,
+// ring slots, the block's shared memory in bytes (Q's tile, the ring, 1 KB
+// of alignment and the mbarriers), the most a block can use, and threads a
+// block.  Returns 0, or cudaErrorInvalidValue for a (hd, block_k) the
+// kernel does not take.
+extern "C" int fa_wgmma_plan(int hd, int block_k, int* out) {
+  if ((hd != 32 && hd != 64 && hd != 128 && hd != 192) || (block_k != 64 && block_k != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int plan[7] = {wg::kRows, wg::kWgRows, wg::stage_keys(hd, block_k), wg::ring_slots(hd),
+                       wg::smem_bytes(hd, block_k), wg::kSmemMax, wg::kThreads};
+  for (int i = 0; i < 7; ++i) out[i] = plan[i];
+  return 0;
 }
 
 extern "C" const char* error_string(int err) {

@@ -1,6 +1,6 @@
-// Building blocks of the bf16 tensor-core kernels (flash_attention.cu,
-// ssd_scan.cu): 16-byte cp.async copies into shared memory, ldmatrix
-// fragments and mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
+// Building blocks of the bf16 tensor-core scan (ssd_scan.cu): 16-byte
+// cp.async copies into shared memory, ldmatrix fragments and
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
 // dequant_normalize.cu takes its cp.async copies and bf16 packing.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):

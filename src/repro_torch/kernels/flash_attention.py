@@ -17,8 +17,9 @@ through ``flash_attention_plain`` beside it, a CUDA tensor launches one of
 the two hand-written kernels in ``csrc/flash_attention.cu`` (or raises),
 and each launch of either adds one to ``flash_attention.launches``.  The
 dtype picks the kernel (``kernel_route``): bf16 runs on the tensor cores
-(head dim 32, 64, 128 or 192; ``block_k`` 64 or 128), f32 on the CUDA cores
-(head dim 32, 64, 128, 192 or 256; any ``block_k``).  Head dim 192 is
+by wgmma over tiles that TMA stages in shared memory (head dim 32, 64, 128
+or 192; ``block_k`` 64 or 128; ``wgmma_plan`` reads its tiling), f32 on the
+CUDA cores (head dim 32, 64, 128, 192 or 256; any ``block_k``).  Head dim 192 is
 DeepSeek's MLA prefill: q and k of 128 + 64 rope dims, and v (128 dims)
 zero-padded to 192 by its caller, as the kernel takes one head dim for q,
 k and v, like the reference's.
@@ -44,8 +45,8 @@ from . import _build
 NEG_INF = -(2.0**30)
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-TC_HEAD_DIMS = (32, 64, 128, 192)  # bf16: the f32 output of 16 rows stays in registers
-TC_BLOCK_KS = (64, 128)  # bf16: the softmax step is one or two 64-key tiles
+TC_HEAD_DIMS = (32, 64, 128, 192)  # bf16: the f32 output of 64 rows stays in a warpgroup's registers
+TC_BLOCK_KS = (64, 128)  # bf16: the softmax step is one 64- or 128-key stage, or two 64-key stages
 F32_HEAD_DIMS = (32, 64, 128, 192, 256)
 
 
@@ -85,20 +86,37 @@ def _check(q, k, v, causal: bool, block_q: int, block_k: int) -> None:
 
 def kernel_route(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
     """The CUDA kernel that ``flash_attention`` launches for a CUDA tensor:
-    ``"tc_bf16"`` (bf16 on the tensor cores) or ``"cuda_f32"`` (f32 on the
-    CUDA cores).  Raises ``ValueError`` for a head dim or ``block_k`` that
+    ``"wgmma_bf16"`` (bf16 on the tensor cores) or ``"cuda_f32"`` (f32 on
+    the CUDA cores).  Raises ``ValueError`` for a head dim or ``block_k`` that
     the kernel does not take, ``TypeError`` for another dtype."""
     if dtype == torch.bfloat16:
         if head_dim not in TC_HEAD_DIMS:
             raise ValueError(f"flash_attention: the bf16 kernel takes head_dim in {TC_HEAD_DIMS}; got {head_dim}")
         if block_k not in TC_BLOCK_KS:
             raise ValueError(f"flash_attention: the bf16 kernel takes block_k in {TC_BLOCK_KS}; got {block_k}")
-        return "tc_bf16"
+        return "wgmma_bf16"
     if dtype == torch.float32:
         if head_dim not in F32_HEAD_DIMS:
             raise ValueError(f"flash_attention: the f32 kernel takes head_dim in {F32_HEAD_DIMS}; got {head_dim}")
         return "cuda_f32"
     raise TypeError(f"flash_attention: no CUDA kernel for {dtype}")
+
+
+def wgmma_plan(head_dim: int, block_k: int) -> dict:
+    """The bf16 kernel's tiling, read from its library (``fa_wgmma_plan``
+    in ``csrc/flash_attention.cu``, so it is the kernel's own): blocks of
+    ``rows`` query rows, ``warpgroup_rows`` a consumer warpgroup; K and V
+    tiles of ``stage_keys`` keys, one a slot of a ring of ``ring_slots``;
+    the shared memory a block takes, ``smem_bytes`` (Q's tile, the ring,
+    1 KB of alignment and the mbarriers), against ``smem_max``; and
+    ``threads`` a block.  Builds the library (so needs ``nvcc``); raises
+    where ``kernel_route`` does."""
+    kernel_route(torch.bfloat16, head_dim, block_k)
+    lib = _lib()
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, lib.fa_wgmma_plan(head_dim, block_k, out), "flash_attention.wgmma_plan")
+    keys = ("rows", "warpgroup_rows", "stage_keys", "ring_slots", "smem_bytes", "smem_max", "threads")
+    return dict(zip(keys, out))
 
 
 def kernel_head_dim(dtype: torch.dtype, head_dim: int) -> int:
@@ -155,6 +173,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fa_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
     lib.fa_launch.restype = i
+    lib.fa_wgmma_plan.argtypes = [i, i, p]
+    lib.fa_wgmma_plan.restype = i
     return lib
 
 

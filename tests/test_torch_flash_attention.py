@@ -117,9 +117,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 @pytest.mark.parametrize(
     "dtype,hd,block_k,route",
     [
-        (torch.bfloat16, 128, 128, "tc_bf16"),  # the serving shape
-        (torch.bfloat16, 64, 64, "tc_bf16"),
-        (torch.bfloat16, 32, 128, "tc_bf16"),
+        (torch.bfloat16, 128, 128, "wgmma_bf16"),  # the serving shape
+        (torch.bfloat16, 64, 64, "wgmma_bf16"),
+        (torch.bfloat16, 32, 128, "wgmma_bf16"),
         (torch.float32, 256, 128, "cuda_f32"),
         (torch.float32, 64, 96, "cuda_f32"),  # the f32 kernel takes any block_k
     ],
@@ -144,6 +144,16 @@ def test_the_cuda_route_raises_for_what_the_bf16_kernel_does_not_take(hd, block_
     on the CPU, where no kernel launches, it raises all the same."""
     with pytest.raises(ValueError, match=match):
         fa.kernel_route(torch.bfloat16, hd, block_k)
+
+
+@pytest.mark.parametrize("hd,block_k,match", [(256, 128, "head_dim"), (48, 64, "head_dim"), (128, 96, "block_k"),
+                                               (192, 32, "block_k")])
+def test_the_bf16_plan_raises_where_the_route_does(monkeypatch, hd, block_k, match):
+    """``wgmma_plan`` reads the kernel's own plan from its library, and
+    refuses what the kernel does not take before it builds anything."""
+    monkeypatch.setattr(fa, "_lib", lambda: pytest.fail("the library was asked for"))
+    with pytest.raises(ValueError, match=match):
+        fa.wgmma_plan(hd, block_k)
 
 
 def test_the_cuda_route_raises_for_other_dtypes():
@@ -236,7 +246,7 @@ def test_a_head_dim_the_kernel_does_not_take_is_zero_padded(monkeypatch, dtype, 
     q, k, v = (torch.from_numpy(a).to(td) for a in arrays)
     got = attention._causal_flash(q.reshape(b, kh, g, s, hd).permute(0, 3, 1, 2, 4), k.transpose(1, 2),
                                   v.transpose(1, 2))
-    assert seen == [(32, "tc_bf16" if dtype == "bfloat16" else "cuda_f32")]
+    assert seen == [(32, "wgmma_bf16" if dtype == "bfloat16" else "cuda_f32")]
     monkeypatch.undo()
     assert tuple(got.shape) == (b, s, kh * g, hd) and got.dtype == td
     padded = -s % 64

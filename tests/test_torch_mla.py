@@ -204,8 +204,8 @@ def test_the_plain_kernel_at_head_dim_192_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype,block_k,route", [
-    (torch.bfloat16, 128, "tc_bf16"),  # MLA's serving prefill (512 tokens: tiles of 128)
-    (torch.bfloat16, 64, "tc_bf16"),
+    (torch.bfloat16, 128, "wgmma_bf16"),  # MLA's serving prefill (512 tokens: tiles of 128)
+    (torch.bfloat16, 64, "wgmma_bf16"),
     (torch.float32, 128, "cuda_f32"),
 ])
 def test_the_cuda_route_takes_head_dim_192(dtype, block_k, route):
