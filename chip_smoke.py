@@ -27,7 +27,7 @@ and a copy of the same bytes), then runs
     against the same model and weights on the CPU (prefill, then 4 decode
     steps), and each so again at a prompt of 20 tokens: Qwen3's prefill
     pads it to K3's 64-row tiles (``prefill_ragged``), Mamba2's scans it in
-    one chunk of 20 steps, not a multiple of K4's 16-row tiles
+    one chunk of 20 steps, not a multiple of K4's 64-row tiles
     (``prefill_ragged_ssd``), and Qwen3 at prompts of two packed
     documents whose positions restart, which K3 masks by position
     (``prefill_restart``);
@@ -162,6 +162,13 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py TO
 # planted in the kernel (probes_torch/k3_wgmma.py --faults) 0.29-1.9, one of them within FA_TOL at 32k
 FA_ROW_REL = 2.0**-6
 SSD_TOL = {torch.float32: 3e-5, torch.bfloat16: 6e-2}  # tests/test_kernels.py's SSD sweep, atol and rtol
+# K4 against its plain version, beside SSD_TOL: for y, max |got - want| over max |want| of each (batch,
+# head, chunk); for h_final, of each (batch, head).  At long-memory draws (ssd_inputs_long_memory) y and the
+# state scale with dt, far under SSD_TOL's atol, so SSD_TOL alone passes a state carried wrongly between
+# blocks.  Set from the readings of sound runs and of faults planted in the kernel's carry
+# (probes_torch/k4_wgmma.py --faults; PERF.md)
+SSD_CHUNK_REL = 2.0**-6
+SSD_STATE_REL = 1e-4
 MODEL_REL = 2e-2  # bf16 model outputs: max |card - cpu| over max |cpu|
 # bf16: the SSD state of Jamba's decode step against the prefill of one token more.  The last tokens'
 # inputs reach it through two bf16 pipelines (the step's and the prefill's) and three layers, attention,
@@ -1342,6 +1349,83 @@ def ssd_inputs(gen, b, l, h, p, g, n, dtype, dev):
     return x, dt, a, bm, cm
 
 
+def ssd_inputs_long_memory(gen, b, l, h, p, g, n, dtype, dev):
+    """Heads that keep their state: per head, dt |a| log-uniform on [1e-6,
+    1e-1] and a = -U[1, 16] (Mamba2's A init), dt = that over |a| times
+    U[0.5, 1.5] a step (so some heads keep over half their state across
+    50,000 steps); x ~ N(0, 1), b and c ~ N(0, 0.3^2).  Drawn on ``gen``'s
+    device."""
+    def uniform(shape):
+        return torch.rand(shape, generator=gen, device=gen.device)
+
+    rate = 10.0 ** (-6.0 + 5.0 * uniform(h))  # dt |a| per head
+    a = -(1.0 + 15.0 * uniform(h))
+    dt = (rate / -a) * (0.5 + uniform((b, l, h)))
+    x = torch.randn((b, l, h, p), generator=gen, device=gen.device).to(dev, dtype)
+    bm = (torch.randn((b, l, g, n), generator=gen, device=gen.device) * 0.3).to(dev, dtype)
+    cm = (torch.randn((b, l, g, n), generator=gen, device=gen.device) * 0.3).to(dev, dtype)
+    return x, dt.to(dev), a.to(dev), bm, cm
+
+
+def ssd_rel(y, want_y, h_final, want_h, chunk: int) -> dict:
+    """The scale-aware bars beside SSD_TOL: max |got - want| over max |want|
+    of y in each (batch, head, chunk) and of h_final in each (batch, head);
+    the largest of each, where, and how many are over ``SSD_CHUNK_REL`` and
+    ``SSD_STATE_REL``.  y is taken 2**26 elements at a time."""
+    b, l, h, p = y.shape
+    step = max(1, (1 << 26) // (b * chunk * h * p)) * chunk
+    worst, at, over = 0.0, None, 0
+    for l0 in range(0, l, step):
+        l1 = min(l, l0 + step)
+        g = y[:, l0:l1].float().reshape(b, -1, chunk, h, p)
+        w = want_y[:, l0:l1].float().reshape(b, -1, chunk, h, p)
+        rel = (g - w).abs().amax(dim=(2, 4)) / w.abs().amax(dim=(2, 4)).clamp_min(1e-30)  # (b, chunks, h)
+        k = int(rel.argmax())
+        if float(rel.reshape(-1)[k]) > worst:
+            bi, ci, hi = np.unravel_index(k, tuple(rel.shape))
+            worst, at = float(rel.reshape(-1)[k]), [int(bi), int(ci) + l0 // chunk, int(hi)]
+        over += int((rel > SSD_CHUNK_REL).sum())
+    srel = (h_final.float() - want_h.float()).abs().amax(dim=(2, 3)) / want_h.float().abs().amax(dim=(2, 3)).clamp_min(1e-30)
+    return {"max_chunk_rel_err": worst, "worst_batch_chunk_head": at, "chunk_bar": SSD_CHUNK_REL,
+            "over_chunk_bar": over, "max_state_rel_err": float(srel.max()), "state_bar": SSD_STATE_REL,
+            "over_state_bar": int((srel > SSD_STATE_REL).sum())}
+
+
+def k4_blocks(b: int, l: int, h: int, chunk: int, dtype: torch.dtype, dev: torch.device) -> dict:
+    """The segments a (batch, head) is split into and each pass's blocks, as
+    the wrapper plans them (bf16; the f32 kernel is one block a (batch,
+    head))."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    s = ks.segment_plan(b, h, l // chunk, sms) if dtype == torch.bfloat16 else 1
+    return {"segments": s, "blocks": {"pass_a": b * h * (s - 1), "pass_b": b * h * s}}
+
+
+# phase_ssd's cases, in the order they draw from its generator: name, (b, l, h, p, g, n), chunk, dtype, draw
+SSD_CASES = [
+    ("main", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.bfloat16, ssd_inputs),
+    ("f32", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.float32, ssd_inputs),
+    ("g2", (2, 256, 4, 64, 2, 32), 64, torch.bfloat16, ssd_inputs),
+    ("g2_f32", (2, 256, 4, 64, 2, 32), 64, torch.float32, ssd_inputs),
+    ("g4", (1, 256, 4, 64, 4, 128), 128, torch.bfloat16, ssd_inputs),
+    ("g4_f32", (1, 256, 4, 64, 4, 128), 128, torch.float32, ssd_inputs),
+    ("ragged_chunk40", (2, 40, 4, 64, 1, 128), 40, torch.bfloat16, ssd_inputs),
+    ("ragged_chunk4", (2, 300, 4, 64, 1, 128), 4, torch.bfloat16, ssd_inputs),
+    ("p48_n48", (1, 192, 3, 48, 1, 48), 96, torch.bfloat16, ssd_inputs),
+    ("p16_n112_g2", (1, 300, 2, 16, 2, 112), 100, torch.bfloat16, ssd_inputs),
+    ("jamba", (2, 128, 256, 64, 8, 128), 128, torch.bfloat16, ssd_inputs),  # Jamba's model_check prefill
+    ("long_memory_serving", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.bfloat16,
+     ssd_inputs_long_memory),
+    # 100 chunks of 256 in 8 segments of 12-13 on an H100's 132 SMs
+    ("long_memory_segments", (1, 25600, 48, 64, 1, 128), 256, torch.bfloat16, ssd_inputs_long_memory),
+    # 100 chunks of 40 in 15 segments
+    ("long_memory_ragged", (2, 4000, 4, 64, 1, 128), 40, torch.bfloat16, ssd_inputs_long_memory),
+    # the same at d_state 64: one state panel, which only the second warpgroup folds and stores
+    ("long_memory_n64", (2, 4000, 4, 64, 1, 64), 40, torch.bfloat16, ssd_inputs_long_memory),
+]
+
+
 def ssd_ops(b: int, l: int, h: int, p: int, n: int, chunk: int) -> int:
     """Multiply-adds x 2 of the scan over the lower triangle of each chunk:
     C.B^T and S.x on the i >= j pairs, C.h^T and the state update whole."""
@@ -1352,34 +1436,27 @@ def ssd_ops(b: int, l: int, h: int, p: int, n: int, chunk: int) -> int:
 
 def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
     """K4 against its plain version on the card, each case on the route its
-    dtype picks (bf16: the tensor-core kernel; f32: the CUDA-core kernel);
-    times at the serving shape (Mamba2-780m, batch 8, prompt 512: chunk 256,
-    48 heads of 64, one group of d_state 128) for both routes, with each
-    kernel's ptxas registers and spills.  The ragged cases scan in the
-    chunks ``models.ssm.scan_chunk`` picks for prompts of 40 and 300 tokens
-    (40 and 4), neither a multiple of 16."""
+    dtype picks (bf16: the wgmma kernel; f32: the CUDA-core kernel), held to
+    SSD_TOL and the scale-aware bars (``ssd_rel``); times at the serving
+    shape (Mamba2-780m, batch 8, prompt 512: chunk 256, 48 heads of 64, one
+    group of d_state 128) for both routes, with each kernel's ptxas
+    registers and spills.  The ragged cases scan in the chunks
+    ``models.ssm.scan_chunk`` picks for prompts of 40 and 300 tokens (40 and
+    4), neither a multiple of 64.  The ``long_memory_*`` cases draw heads
+    that keep their state (``ssd_inputs_long_memory``): at the serving
+    shape, at a shape whose chunks the bf16 kernel splits into segments
+    that do not divide them, and so in a ragged chunk at d_state 128 and 64.
+    Each row carries the
+    segments a (batch, head) is split into and each pass's blocks."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as ks
 
     gen = torch.Generator(device="cpu").manual_seed(4)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    cases = [  # name, (b, l, h, p, g, n), chunk, dtype
-        ("main", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.bfloat16),
-        ("f32", (SERVE_BATCH, SERVE_PROMPT, 48, 64, 1, 128), 256, torch.float32),
-        ("g2", (2, 256, 4, 64, 2, 32), 64, torch.bfloat16),
-        ("g2_f32", (2, 256, 4, 64, 2, 32), 64, torch.float32),
-        ("g4", (1, 256, 4, 64, 4, 128), 128, torch.bfloat16),
-        ("g4_f32", (1, 256, 4, 64, 4, 128), 128, torch.float32),
-        ("ragged_chunk40", (2, 40, 4, 64, 1, 128), 40, torch.bfloat16),
-        ("ragged_chunk4", (2, 300, 4, 64, 1, 128), 4, torch.bfloat16),
-        ("p48_n48", (1, 192, 3, 48, 1, 48), 96, torch.bfloat16),
-        ("p16_n112_g2", (1, 300, 2, 16, 2, 112), 100, torch.bfloat16),
-        ("jamba", (2, 128, 256, 64, 8, 128), 128, torch.bfloat16),  # Jamba's model_check prefill
-    ]
     ptxas = _build.ptxas("ssd_scan")
     entry = summary["ssd_scan"]
-    for name, shape, chunk, dtype in cases:
-        args = ssd_inputs(gen, *shape, dtype, dev)
+    for name, shape, chunk, dtype, draw in SSD_CASES:
+        args = draw(gen, *shape, dtype, dev)
         y, h_final = ks.ssd_scan(*args, chunk=chunk)
         want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk)
         sync(dev)
@@ -1387,15 +1464,22 @@ def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
         if dtype == torch.bfloat16:  # near 0 the ulps are many and atol decides: also count them above atol
             big = want_y.float().abs() >= SSD_TOL[dtype]
             on_y["max_bf16_ulps_above_atol"] = int(bf16_ulp_steps(y[big], want_y[big]).max()) if big.any() else 0
+        b, l, h, p, g, n = shape
         row = {"phase": "kernels", "kernel": "ssd_scan", "case": name, "b_l_h_p_g_n": list(shape),
-               "chunk": chunk, "dtype": str(dtype), "route": ks.kernel_route(dtype, shape[3], shape[5]),
-               "y": on_y, "h_final": on_h, "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+               "chunk": chunk, "dtype": str(dtype), "draw": draw.__name__, "route": ks.kernel_route(dtype, p, n),
+               **k4_blocks(b, l, h, chunk, dtype, dev), "y": on_y, "h_final": on_h,
+               "scale_aware": ssd_rel(y, want_y, h_final, want_h, chunk),
+               "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
-        if on_y["over_bar"] or on_h["over_bar"]:
+        if name.startswith("long_memory_") and name != "long_memory_serving" and (
+                row["segments"] < 2 or (l // chunk) % row["segments"] == 0):
+            emit(row)
+            raise AssertionError(f"ssd_scan {name}: {row['segments']} segments do not split {l // chunk} chunks unevenly")
+        if on_y["over_bar"] or on_h["over_bar"] or row["scale_aware"]["over_chunk_bar"] or \
+                row["scale_aware"]["over_state_bar"]:
             emit(row)
             raise AssertionError(f"ssd_scan {name}: elements over the bar")
         if name in ("main", "f32"):
-            b, l, h, p, g, n = shape
             row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk), flush)
             nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h_final))
             ops = ssd_ops(b, l, h, p, n, chunk)
@@ -1406,11 +1490,13 @@ def phase_ssd(dev: torch.device, summary: dict, card: str) -> None:
             row["library_ms"] = None
             row["f32_cores_ms"] = ops / F32_OPS_PER_S * 1e3  # where products on the CUDA cores in f32 would stop
             row["ptxas"] = ptxas  # both kernels, each instantiation
-            # batch 1: 48 blocks, fewer than the SMs, so this is one block's time (the
-            # main case runs 384 blocks of one SM each in three waves)
+            row["wrapper_host_ms"] = host_ms(lambda: ks.ssd_scan(*args, chunk=chunk), dev)
+            # batch 1: 48 (batch, head) pairs, fewer than the SMs, so the kernel splits each one's two
+            # chunks into two segments (the main case's 384 pairs are 2.9 waves of one block an SM)
             one = tuple(t[:1] if t.dim() > 1 else t for t in args)
             row["batch1_ms"] = time_ms(lambda: ks.ssd_scan(*one, chunk=chunk), flush)
-            entry.update({key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+            row["batch1_segments"] = k4_blocks(1, l, h, chunk, dtype, dev)["segments"]
+            entry.update({key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "segments")})
         emit(row)
 
 
@@ -1726,7 +1812,9 @@ def trace_step(dev: torch.device, fn, *kernel_symbols: str) -> dict:
     """One call of ``fn`` under ``torch.profiler``, the card's activity only:
     the card's busy time (the sum of its kernels' times), the named
     kernels' time and launches together (``kernel_ms``) and each one's with
-    its share of the busy time (``by_kernel``), and the top five."""
+    its share of the busy time (``by_kernel``; a symbol sums every kernel
+    whose name holds it, each listed under ``instances``), and the top
+    five."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
@@ -1740,6 +1828,8 @@ def trace_step(dev: torch.device, fn, *kernel_symbols: str) -> dict:
         mine = [e for e in on_card if symbol in e.key]
         ms = sum(e.self_device_time_total for e in mine) / 1e3
         by_kernel[symbol] = {"ms": ms, "launches": sum(e.count for e in mine), "share": ms / busy if busy else 0.0}
+        if len(mine) > 1:  # instances under one symbol (K4's two passes): each one's ms and launches
+            by_kernel[symbol]["instances"] = {e.key[:80]: [e.self_device_time_total / 1e3, e.count] for e in mine}
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
     return {"device_busy_ms": busy, "kernel_ms": sum(k["ms"] for k in by_kernel.values()),
             "kernel_launches": sum(k["launches"] for k in by_kernel.values()), "by_kernel": by_kernel,
@@ -1748,7 +1838,9 @@ def trace_step(dev: torch.device, fn, *kernel_symbols: str) -> dict:
 
 
 # each hand-written kernel a prefill launches once for every layer of its kinds, and its CUDA name
-PREFILL_KERNELS = {"flash_attention": (("attn", "mla"), "fa_wgmma_bf16"), "ssd_scan": (("ssd",), "ssd_tc_bf16")}
+# (K4's symbol names both of its passes' instances, ssd_wgmma_bf16<NPAN,false> and <NPAN,true>: a trace
+# sums them)
+PREFILL_KERNELS = {"flash_attention": (("attn", "mla"), "fa_wgmma_bf16"), "ssd_scan": (("ssd",), "ssd_wgmma_bf16")}
 
 
 def prefill_launches(cfg) -> dict:
@@ -2038,41 +2130,58 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     emit(row)
 
 
-def long_k4(dev: torch.device, summary: dict, card: str, arch: str) -> None:
+def long_k4(dev: torch.device, summary: dict, card: str, arch: str, long_memory: bool = False) -> None:
     """K4 at the scan of ``arch``'s long shape (``LONG_K4[arch]``), bf16,
     seeded on the card, in the chunk ``scan_chunk`` picks, at the shape's
     rows in ``LONG_ROWS``: Mamba2-780m's ``long_500k``, x
     (1,524288,48,64), one group of d_state 128, chunk 256 (2,048 chunks);
     Jamba-1.5-large's ``prefill_32k``, x (2,32768,256,64), 8 groups of
-    d_state 128, chunk 256.  y and h_final within SSD_TOL of its plain
-    version (every row and head), timed beside it and its bound.  A launch
-    is a block a (row, head): Mamba2's 48 are one partial wave of the card's
-    SMs, so its time is one block's; Jamba's 512 fill it, and
-    ``batch1_ms`` times its first row alone (256 blocks)."""
+    d_state 128, chunk 256.  y and h_final within SSD_TOL and the
+    scale-aware bars (``ssd_rel``) of its plain version (every row and
+    head), timed beside it and its bound.  Mamba2's 48 (row, head) pairs
+    are too few blocks for the card's SMs, so the kernel splits each one's
+    chunks into segments (``segments``; ``blocks`` of each pass); Jamba's
+    512 fill it, and ``batch1_ms`` times its first row alone.  With
+    ``long_memory`` the heads keep their state (``ssd_inputs_long_memory``),
+    which the segments carry, and the case is checked, not timed."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SHAPES
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.models.ssm import scan_chunk
 
     case, key, shape_name = LONG_K4[arch]
+    if long_memory:
+        case, key = f"{case}_long_memory", f"{key}_long_memory"
     cfg = get_config(arch)
     ssd, l = cfg.ssd, SHAPES[shape_name].seq_len
     rows = LONG_ROWS[(arch, shape_name)]
     shape = (rows, l, ssd.n_heads(cfg.d_model), ssd.head_dim, ssd.n_groups, ssd.d_state)
     chunk = scan_chunk(cfg, l)
-    args = ssd_inputs(torch.Generator(device=dev).manual_seed(11), *shape, torch.bfloat16, dev)
+    draw = ssd_inputs_long_memory if long_memory else ssd_inputs
+    args = draw(torch.Generator(device=dev).manual_seed(11), *shape, torch.bfloat16, dev)
     y, h_final = ks.ssd_scan(*args, chunk=chunk)
     want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk)
     sync(dev)
     on_y, on_h = within_tol(y, want_y, SSD_TOL), within_tol(h_final, want_h, SSD_TOL)
+    scale_aware = ssd_rel(y, want_y, h_final, want_h, chunk)
     del want_y, want_h
+    b, l, h, p, _, n = shape
     row = {"phase": "long_shapes", "case": case, "kernel": "ssd_scan", "arch": cfg.name, "b_l_h_p_g_n": list(shape),
-           "chunk": chunk, "chunks": shape[1] // chunk, "dtype": "torch.bfloat16",
-           "route": ks.kernel_route(torch.bfloat16, shape[3], shape[5]), "y": on_y, "h_final": on_h,
-           "held_to_plain": "every row and head", "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
-    if on_y["over_bar"] or on_h["over_bar"]:
+           "chunk": chunk, "chunks": shape[1] // chunk, "dtype": "torch.bfloat16", "draw": draw.__name__,
+           "route": ks.kernel_route(torch.bfloat16, shape[3], shape[5]),
+           **k4_blocks(b, l, h, chunk, torch.bfloat16, dev), "y": on_y, "h_final": on_h,
+           "scale_aware": scale_aware, "held_to_plain": "every row and head",
+           "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+    if on_y["over_bar"] or on_h["over_bar"] or scale_aware["over_chunk_bar"] or scale_aware["over_state_bar"]:
         emit(row)
         raise AssertionError(f"ssd_scan at {cfg.name}'s {shape_name}: elements over the bar")
+    entry = summary["ssd_scan"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+    if long_memory:
+        entry[key] = {name: row[name] for name in ("max_abs_err", "segments")}
+        entry[key].update({name: scale_aware[name] for name in ("max_chunk_rel_err", "max_state_rel_err")})
+        emit(row)
+        return
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk), flush, runs=LONG_TIMED_RUNS)
     if rows == 1:
@@ -2080,19 +2189,17 @@ def long_k4(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     else:
         one = tuple(t[:1] if t.dim() > 1 else t for t in args)
         row["batch1_ms"] = time_ms(lambda: ks.ssd_scan(*one, chunk=chunk), flush, runs=LONG_TIMED_RUNS)
+        row["batch1_segments"] = k4_blocks(1, l, h, chunk, torch.bfloat16, dev)["segments"]
     row["ms_per_chunk"] = row["ms"] / row["chunks"]
     row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk), flush, runs=2, warm=0)
     row["library_ms"] = None
-    b, l, h, p, _, n = shape
     nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h_final))
     row.update(bound(nbytes, ssd_ops(b, l, h, p, n, chunk), BF16_TC_OPS_PER_S, card))
     row["over_bound"] = row["ms"] / row["bound_ms"]
-    row["note"] = (f"{b * h} blocks of one (row, head) each on the card's SMs; batch1_ms: the first row's "
-                   f"{h} blocks alone")
-    entry = summary["ssd_scan"]
-    entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+    row["note"] = (f"{row['segments']} segment(s) a (row, head): {row['blocks']['pass_b']} blocks walk them, "
+                   f"{row['blocks']['pass_a']} first scan the states they carry; batch1_ms: the first row alone")
     entry[key] = {name: row[name] for name in (
-        "ms", "batch1_ms", "plain_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err")}
+        "ms", "batch1_ms", "plain_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err", "segments")}
     entry[key]["launches"] = 0  # long_run adds the path's
     emit(row)
 
@@ -2402,6 +2509,7 @@ def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
     another and the recurrent decode, in bf16 and, as its witness, in f32."""
     cases = [(f"k3 {arch}", long_k3, (dev, summary, card, arch), {}) for arch in LONG_K3]
     cases += [(f"k4 {arch}", long_k4, (dev, summary, card, arch), {}) for arch in LONG_K4]
+    cases += [("k4 mamba2-780m long_memory", long_k4, (dev, summary, card, "mamba2-780m"), {"long_memory": True})]
     jamba, qwen15 = "jamba-1.5-large-398b", "qwen1.5-110b"
     cases += [
         ("qwen3-0.6b prefill_32k", long_run, (dev, summary, "qwen3-0.6b", "prefill_32k", 0, 0, 2, "prefill"), {}),
@@ -3074,6 +3182,7 @@ def phase_examples(dev: torch.device, summary: dict) -> None:
 def kernel_summary() -> dict:
     """The ``kernels`` line's entries, one a kernel, before any phase fills them."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
 
     summary = {
         name: {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/dequant_normalize.cu",
@@ -3097,7 +3206,8 @@ def kernel_summary() -> dict:
         "replaces": "src/repro/kernels/ssd_scan.py:91", "launches": 0, "max_abs_err": 0.0,
         "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
         "library_note": "no single PyTorch call computes the SSD chunked scan",
-        "cuda_route": "tc_bf16",  # ssd_tc_bf16, the main path's (bf16) kernel; f32 runs ssd_cuda_f32
+        # the main path's (bf16) kernel, ssd_wgmma_bf16 (two passes where it splits the chunks); f32 runs ssd_cuda_f32
+        "cuda_route": ks.kernel_route(torch.bfloat16, 64, 128),
     }
     return summary
 

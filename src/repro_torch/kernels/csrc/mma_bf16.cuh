@@ -1,7 +1,7 @@
-// Building blocks of the bf16 tensor-core scan (ssd_scan.cu): 16-byte
-// cp.async copies into shared memory, ldmatrix fragments and
-// mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
-// dequant_normalize.cu takes its cp.async copies and bf16 packing.
+// Pre-Hopper building blocks: 16-byte cp.async copies into shared memory,
+// ldmatrix fragments and mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators.  dequant_normalize.cu takes its cp.async copies and bf16
+// packing; the tensor-core kernels take Hopper's from wgmma_bf16.cuh.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row): a[0] row g, k 2t and 2t+1; a[1] row g+8, the same k;

@@ -1,6 +1,7 @@
-// Hopper's own building blocks of the bf16 attention kernel
-// (flash_attention.cu): mbarriers, TMA copies between device memory and
-// shared memory, warpgroup register reallocation, and wgmma with its
+// Hopper's own building blocks of the bf16 attention and SSD-scan kernels
+// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA copies between device
+// memory and shared memory (and, on the host, the CUDA driver's
+// tensor-map encoder), warpgroup register reallocation, and wgmma with its
 // shared-memory matrix descriptors.  sm_90a only.
 //
 // wgmma.m64nNk16 with bf16 operands and f32 accumulators, issued by a
@@ -25,7 +26,9 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -73,6 +76,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // --- TMA ----------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, a driver call, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
 
 // The box at (c0, c1, c2) of a rank-3 tensor map into shared memory; the
 // bytes land on `bar`.  Elements outside the tensor arrive as zeros.

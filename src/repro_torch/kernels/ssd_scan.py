@@ -26,14 +26,21 @@ the kernel and the plain version agree on ``cs`` bit for bit.
 ``ssd_scan`` dispatches on the device of x: a CPU tensor goes through
 ``ssd_scan_plain`` beside it, a CUDA tensor launches one of the two
 hand-written kernels in ``csrc/ssd_scan.cu`` (or raises), and each launch
-of either adds one to ``ssd_scan.launches``.  The dtype picks the kernel
-(``kernel_route``): bf16 runs on the tensor cores, its f32 operands (the
-scores, the state and x * w) as sums of bf16 pieces, so its y and h_final
-differ from the plain version's by rounding; f32 runs on the CUDA cores.
-Both take head_dim 16, 32, 48 or 64 and d_state a multiple of 16 up to
-128; the bf16 kernel holds a whole chunk in shared memory and takes any
-chunk up to 256 (every chunk ``models.ssm.scan_chunk`` picks), the f32
-kernel any chunk.
+of either adds one to ``ssd_scan.launches`` (one a call, whatever passes
+the call launches).  The dtype picks the kernel (``kernel_route``): bf16
+runs on the tensor cores (wgmma), its f32 operands (the scores, the state
+and x * w) as sums of bf16 pieces, so its y and h_final differ from the
+plain version's by rounding; f32 runs on the CUDA cores.  Both take
+head_dim 16, 32, 48 or 64 and d_state a multiple of 16 up to 128; the bf16
+kernel takes any chunk up to 256 (every chunk ``models.ssm.scan_chunk``
+picks), the f32 kernel any chunk.
+
+Where batch x heads blocks would not fill the card, the bf16 kernel splits
+each sequence's chunks into ``segment_plan`` segments (``segment_bounds``):
+a first pass scans each segment but the last from a zero state to its local
+state and log-decay, and the second walks every segment from the state the
+ones before it carry (see ``csrc/ssd_scan.cu``).  The recurrence is linear,
+so the result is the same function, up to rounding.
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from . import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _KERNEL_HEAD_DIMS = (16, 32, 48, 64)  # P: a warp keeps (16 rows x P) of y in registers
-_KERNEL_MAX_STATE = 128  # N: a multiple of 16; a warp keeps C of its rows (16 x N) in registers
-_TC_MAX_CHUNK = 256  # bf16: a block of 16 warps holds the chunk, 16 rows a warp
+_KERNEL_MAX_STATE = 128  # N: a multiple of 16, in one or two 64-column panels
+_TC_MAX_CHUNK = 256  # bf16: a chunk is at most four 64-row tiles, all in the kernel's ring at once
+_SMS_H100 = 132
 
 
 def _check(x, dt, a, b, c, chunk: int) -> None:
@@ -78,8 +86,8 @@ def _check(x, dt, a, b, c, chunk: int) -> None:
 
 def kernel_route(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
     """The CUDA kernel that ``ssd_scan`` launches for a CUDA tensor:
-    ``"tc_bf16"`` (bf16 on the tensor cores) or ``"cuda_f32"`` (f32 on the
-    CUDA cores).  Raises ``ValueError`` for a head dim or d_state that the
+    ``"wgmma_bf16"`` (bf16 on the tensor cores) or ``"cuda_f32"`` (f32 on
+    the CUDA cores).  Raises ``ValueError`` for a head dim or d_state that the
     kernels do not take, ``TypeError`` for another dtype."""
     if dtype not in _DTYPES:
         raise TypeError(f"ssd_scan: no CUDA kernel for {dtype}")
@@ -87,7 +95,35 @@ def kernel_route(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
         raise ValueError(f"ssd_scan: the CUDA kernels take head_dim in {_KERNEL_HEAD_DIMS}; got {head_dim}")
     if d_state <= 0 or d_state % 16 or d_state > _KERNEL_MAX_STATE:
         raise ValueError(f"ssd_scan: the CUDA kernels take d_state a multiple of 16 up to {_KERNEL_MAX_STATE}; got {d_state}")
-    return "tc_bf16" if dtype == torch.bfloat16 else "cuda_f32"
+    return "wgmma_bf16" if dtype == torch.bfloat16 else "cuda_f32"
+
+
+@functools.cache
+def segment_plan(bsz: int, heads: int, chunks: int, sms: int = _SMS_H100) -> int:
+    """How many segments S the bf16 kernel splits each (batch, head)'s
+    ``chunks`` chunks into.  A block walks one segment, and its shared
+    memory holds it to one block an SM, so ``sms`` blocks run at a time (a
+    wave).  S is 1 where bsz x heads blocks already fill two waves;
+    otherwise the S that minimises the waves of blocks times the chunks of
+    the longest segment, ceil(bsz heads S / sms) x ceil(chunks / S), over
+    1 <= S <= min(chunks, 4 ceil(2 sms / (bsz heads))), ties to the smaller
+    S (its first pass is shorter)."""
+    blocks = bsz * heads
+    if blocks >= 2 * sms or chunks <= 1:
+        return 1
+    top = min(chunks, 4 * -(-2 * sms // blocks))
+    return min(range(1, top + 1), key=lambda s: -(-blocks * s // sms) * -(-chunks // s))
+
+
+def segment_bounds(chunks: int, segments: int) -> list[tuple[int, int]]:
+    """The chunks [first, end) of each segment, as the kernel cuts them:
+    segment s is [s chunks // S, (s + 1) chunks // S)."""
+    return [(s * chunks // segments, (s + 1) * chunks // segments) for s in range(segments)]
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def chunk_cumsum(da: torch.Tensor, dim: int) -> torch.Tensor:
@@ -134,7 +170,7 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128) -> tuple[torch.Tensor, t
 def _lib() -> ctypes.CDLL:
     lib = _build.library("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ssd_launch.restype = i
     return lib
 
@@ -151,7 +187,9 @@ def ssd_scan(
     """Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) f32).
     Raises ``ValueError`` where the reference asserts: ``H % G`` and
     ``L % chunk``; on a CUDA device also where ``kernel_route`` does and
-    for a bf16 chunk over 256."""
+    for a bf16 chunk over 256.  A bf16 call that splits its chunks
+    (``segment_plan``) allocates the first pass's scratch, (B, H, S - 1,
+    P, N) f32 and (B, H, S - 1) f64."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
     if x.device.type != "cuda":
@@ -159,10 +197,12 @@ def ssd_scan(
     _check(x, dt, a, b, c, chunk)
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    if kernel_route(x.dtype, p, n) == "tc_bf16" and chunk > _TC_MAX_CHUNK:
+    bf16 = kernel_route(x.dtype, p, n) == "wgmma_bf16"
+    if bf16 and chunk > _TC_MAX_CHUNK:
         raise ValueError(f"ssd_scan: the bf16 kernel takes chunk up to {_TC_MAX_CHUNK}; got {chunk}")
-    if bsz * h > 2**31 - 1:
-        raise ValueError(f"ssd_scan: batch {bsz} x heads {h} is too many blocks")
+    segments = segment_plan(bsz, h, l // chunk, _sms(x.device.index or 0)) if bf16 and x.numel() else 1
+    if bsz * h * segments > 2**31 - 1 or bsz * l > 2**31 - 1:
+        raise ValueError(f"ssd_scan: batch {bsz} x heads {h} x length {l} is too many blocks or rows")
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
@@ -173,12 +213,18 @@ def ssd_scan(
     h_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, h_final.zero_()
+    h_loc = d_loc = None
+    if segments > 1:
+        h_loc = torch.empty((bsz, h, segments - 1, p, n), dtype=torch.float32, device=x.device)
+        d_loc = torch.empty((bsz, h, segments - 1), dtype=torch.float64, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_launch(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), h_final.data_ptr(), _DTYPES[x.dtype], bsz, l, h, p, g, n, chunk, stream,
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+            h_final.data_ptr(), h_loc.data_ptr() if segments > 1 else None,
+            d_loc.data_ptr() if segments > 1 else None, _DTYPES[x.dtype], bsz, l, h, p, g, n, chunk, segments,
+            stream,
         )
     _build.check(lib, err, "ssd_scan")
     ssd_scan.launches += 1

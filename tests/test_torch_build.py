@@ -39,9 +39,11 @@ def test_an_edited_source_or_included_header_changes_the_library_name(tmp_path, 
 
 
 def test_both_tensor_core_kernels_include_the_shared_header():
-    """K4 takes mma.sync's blocks from ``mma_bf16.cuh``; K3 takes Hopper's
-    (TMA, mbarriers, wgmma) from ``wgmma_bf16.cuh`` and no mma.sync."""
-    for name, header in (("flash_attention", "wgmma_bf16.cuh"), ("ssd_scan", "mma_bf16.cuh")):
+    """K3 and K4 take Hopper's blocks (TMA, mbarriers, wgmma) from
+    ``wgmma_bf16.cuh`` and no mma.sync; K1/K2 take their cp.async copies
+    from ``mma_bf16.cuh``."""
+    for name, header in (("flash_attention", "wgmma_bf16.cuh"), ("ssd_scan", "wgmma_bf16.cuh"),
+                         ("dequant_normalize", "mma_bf16.cuh")):
         names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
         assert names == [f"{name}.cu", header]
 
@@ -51,8 +53,10 @@ def test_both_tensor_core_kernels_include_the_shared_header():
      "fa_wgmma_bf16<128,128,false>"),
     ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_c8d923ad3f3211fa_cuda_f32ILi8ELb1EEEvPKfS3_S3_PfPKiS6_iiiiiifi",
      "fa_cuda_f32<8,true>"),
-    ("_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_7e9368b42tc11ssd_tc_bf16ILi4EEEvPK13__nv_bfloat16PKfS6_S4_S4_PS2_Pfiiiii",
-     "ssd_tc_bf16<4>"),
+    ("_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_7e9368b42wg14ssd_wgmma_bf16ILi2ELb1EEEv14CUtensorMap_stS2_S2_PKfS4_"
+     "P13__nv_bfloat16PfS7_Pdiiiiiii", "ssd_wgmma_bf16<2,true>"),
+    ("_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_7e9368b42wg14ssd_wgmma_bf16ILi1ELb0EEEv14CUtensorMap_stS2_S2_PKfS4_"
+     "P13__nv_bfloat16PfS7_Pdiiiiiii", "ssd_wgmma_bf16<1,false>"),
     ("_ZN53_GLOBAL__N__e4682500_20_dequant_normalize_cu_3f0f19877dn_rowsIffEEvPKT_PKfS5_PKiPT0_iiiiiiiiilf", "dn_rows"),
 ])
 def test_ptxas_names_each_instance_by_its_template_arguments(mangled, name):
