@@ -77,21 +77,27 @@ and a copy of the same bytes), then runs
     Jamba-1.5-Large in 3 layers at ``prefill_32k`` and ``decode_32k`` (2
     rows; K3 at its attention and K4 at its 32k scan held to their plain
     versions) and its decode step against the prefill of one token more;
-    Qwen1.5-110B in 4 layers at ``prefill_32k`` (2 rows);
+    Qwen1.5-110B in 4 layers at ``prefill_32k`` (2 rows); Yi-6B and
+    OLMo-1B at full depth and Qwen1.5-110B in 4 layers at ``decode_32k`` (2
+    rows) and Yi-6B's decode step against the prefill of one token more;
     Mamba2-780m at ``long_500k`` (524,288 tokens, then 16 decode steps);
     the state after 524,288 tokens against a prefill in another chunk and
     64 decode steps;
   - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M,
-    DeepSeek-V3, MusicGen-medium and InternVL2-2B at full width, cut to 2
-    layers (DeepSeek to 1, its MTP block beside it), up to the optimizer's
+    DeepSeek-V3, MusicGen-medium, InternVL2-2B, OLMo-1B and Yi-6B at full
+    width, cut to 2 layers (DeepSeek to 1, its MTP block beside it), up to
+    the optimizer's
     update, on the card against the same step on the CPU, in f32
     with TF32 off and in bf16 (``train_check``: loss, grad norm and every
     gradient leaf; Granite's aux loss and routes, DeepSeek's MTP loss too);
   - ``Trainer.fit`` on ``build_lm_loader`` batches at full width and depth
     (``train``; sequence 4096, global batch 8): Qwen3-0.6B for 2 steps,
     with a checkpoint at step 1 that a fresh ``Trainer.from_checkpoint``
-    restores bit for bit, Mamba2-780m for 2 steps, and Granite-MoE-1B-A400M
-    for 2 steps (its aux loss beside the LM loss).  Training launches
+    restores bit for bit, Mamba2-780m (cut to 24 layers) for 2 steps,
+    Granite-MoE-1B-A400M for 2 steps (its aux loss beside the LM loss),
+    OLMo-1B for 2 steps, and Qwen1.5-110B cut to 2 layers for 2 steps on
+    ``adamw_bf16``, step 1's update of a few parts of its parameters held
+    on the host to one bf16 ulp (``adamw_update_check``).  Training launches
     none of the four kernels: the reference trains through its plain
     attention and SSD scan, which the port repeats under autograd;
   - the torch twins of the reference's four examples (``examples``, from
@@ -209,12 +215,15 @@ CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check promp
 # layer (5,120 slots an expert at capacity factor 1.25: the dispatched tokens 1.34 GB, the experts' three
 # intermediates about 4 GB each, their outputs 1.34 GB, two f32 copies of 65,536 pairs 2.1 GB each) and
 # about 8 GB in an SSD layer, beside 25.9 GB of weights: 2 rows.  Qwen1.5-110B in QWEN15_LAYERS layers:
-# 15.9 GB of weights and about 9.7 GB a row of FFN intermediates: 2 rows
+# 15.9 GB of weights and about 9.7 GB a row of FFN intermediates: 2 rows.  decode_32k, 2 rows each: Yi-6B's
+# cache 2.15 GB a row beside 12.1 GB of weights, OLMo-1B's (MHA) 4.29 GB a row beside 2.35 GB, Qwen1.5-110B's
+# in QWEN15_LAYERS layers 0.54 GB a row beside 15.9 GB
 LONG_ROWS = {("qwen3-0.6b", "prefill_32k"): 4, ("qwen3-0.6b", "decode_32k"): 8, ("mamba2-780m", "long_500k"): 1,
              ("deepseek-v3-671b", "prefill_32k"): 1, ("deepseek-v3-671b", "decode_32k"): 1,
              ("yi-6b", "prefill_32k"): 2, ("olmo-1b", "prefill_32k"): 2,
              ("jamba-1.5-large-398b", "prefill_32k"): 2, ("jamba-1.5-large-398b", "decode_32k"): 2,
-             ("qwen1.5-110b", "prefill_32k"): 2}
+             ("qwen1.5-110b", "prefill_32k"): 2,
+             ("yi-6b", "decode_32k"): 2, ("olmo-1b", "decode_32k"): 2, ("qwen1.5-110b", "decode_32k"): 2}
 LONG_MLA_LAYERS = 4  # DeepSeek-V3 as serve runs it: 3 dense MLA layers, then one of 256 experts
 LONG_MLA_CHECK_LAYERS = 3  # its decode-against-prefill check: the dense layers alone (first_k_dense)
 # Jamba at the long shapes: attention + dense FFN, SSD + MoE, SSD + dense, every block kind it has (25.9 GB)
@@ -249,6 +258,14 @@ CONDITIONED = {("yi-6b", "float32"): True, ("yi-6b", "bfloat16"): True,
                ("olmo-1b", "float32"): False, ("olmo-1b", "bfloat16"): True,
                ("qwen1.5-110b", "float32"): True, ("qwen1.5-110b", "bfloat16"): True}
 QWEN15_CHECK_SEQ = 128  # Qwen1.5-110B's model_check prompt, as Jamba's: the CPU run is most of its time
+YI_CHECK_SEQ = 128  # Yi-6B's train_check: one row, as DeepSeek-V3's; its 2 layers hold 0.87 B parameters
+# train: Qwen1.5-110B in 2 layers, 5.21 B parameters: bf16 params, gradients and both adamw_bf16 moments
+# come to 41.7 GB, beside about 5-8 GB of f32 logits of 4,096 x 152,064 and their gradient (4 layers would
+# hold 63 GB of state alone)
+QWEN15_TRAIN_LAYERS = 2
+ADAMW_CHECK_ROWS = 4096  # the AdamW update check holds the embedding's and layer 0's w_down's first rows
+ADAMW_CHECK_PIECE = 1 << 22  # ... and runs on the host in pieces of this many elements
+MAMBA2_TRAIN_LAYERS = 24  # train: cut from 48 for the time limit; PERF.md §5 keeps the full-depth step
 
 
 def emit(obj: dict) -> None:
@@ -2330,7 +2347,8 @@ def long_decode_check(dev: torch.device, arch: str, layers: int, conditioned: bo
     prefill of 32,704 tokens (into the 32,768-slot cache) against the last
     logits of a prefill of those 32,705 tokens (padded to 32,768 for K3),
     within MODEL_REL of the largest value over the real vocabulary.  Qwen3
-    in LONG_CHECK_LAYERS; DeepSeek-V3 in its 3 dense layers, on
+    in LONG_CHECK_LAYERS; Yi-6B so, on ``condition_attention``'s wq/wk
+    (``CONDITIONED``), its rope_theta of 5e6 at 32k positions; DeepSeek-V3 in its 3 dense layers, on
     ``condition_attention``'s w_uq/w_uk as its ``model_check`` runs: MoE
     capacity is per sequence (``capacity_per_seq``), so a prefill of
     32,705 tokens may drop a pair at an expert's capacity that a one-token
@@ -2499,12 +2517,13 @@ def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
     prompt against the prefill of one token more; DeepSeek-V3 in 4 layers
     at ``prefill_32k`` and ``decode_32k`` (one row each, 64 absorbed decode
     steps over the 32,768-slot latent cache) and its decode check in its 3
-    dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows); Jamba in
+    dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` and ``decode_32k``
+    (2 rows) and Yi-6B's decode check in 4 layers; Jamba in
     3 layers (attention + dense, SSD + MoE, SSD + dense: K3 and K4 in one
     prefill) at ``prefill_32k`` and ``decode_32k`` (2 rows) and its decode
     step against the prefill of one token more (``long_hybrid_decode_check``);
-    Qwen1.5-110B in 4 layers at ``prefill_32k`` (2 rows); Mamba2-780m
-    at ``long_500k`` (a prefill of 524,288 tokens, then 16 decode steps from
+    Qwen1.5-110B in 4 layers at ``prefill_32k`` and ``decode_32k`` (2
+    rows); Mamba2-780m at ``long_500k`` (a prefill of 524,288 tokens, then 16 decode steps from
     its state); and the state after 524,288 tokens by one chunk against
     another and the recurrent decode, in bf16 and, as its witness, in f32."""
     cases = [(f"k3 {arch}", long_k3, (dev, summary, card, arch), {}) for arch in LONG_K3]
@@ -2523,8 +2542,13 @@ def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
          {"layers": LONG_MLA_LAYERS}),
         ("deepseek-v3-671b decode check", long_decode_check,
          (dev, "deepseek-v3-671b", LONG_MLA_CHECK_LAYERS), {"conditioned": True}),
-        ("yi-6b prefill_32k", long_run, (dev, summary, "yi-6b", "prefill_32k", 0, 0, 2, "prefill"), {}),
-        ("olmo-1b prefill_32k", long_run, (dev, summary, "olmo-1b", "prefill_32k", 0, 0, 2, "prefill"), {}),
+        # one timed prefill beside the traced one (cut from 2): their decode_32k runs the same prefill
+        ("yi-6b prefill_32k", long_run, (dev, summary, "yi-6b", "prefill_32k", 0, 0, 1, "prefill"), {}),
+        ("olmo-1b prefill_32k", long_run, (dev, summary, "olmo-1b", "prefill_32k", 0, 0, 1, "prefill"), {}),
+        *((f"{arch} decode_32k", long_run, (dev, summary, arch, "decode_32k", LONG_TAIL, LONG_TAIL, 1, "decode"),
+           {"layers": layers}) for arch, layers in (("yi-6b", None), ("olmo-1b", None), (qwen15, QWEN15_LAYERS))),
+        # Yi-6B's rope_theta of 5e6 at 32k positions, on condition_attention's weights (CONDITIONED)
+        ("yi-6b decode check", long_decode_check, (dev, "yi-6b", LONG_CHECK_LAYERS), {"conditioned": True}),
         (f"{jamba} prefill_32k", long_run, (dev, summary, jamba, "prefill_32k", 0, 0, 2, "prefill"),
          {"layers": JAMBA_LONG_LAYERS}),
         (f"{jamba} decode_32k", long_run, (dev, summary, jamba, "decode_32k", LONG_TAIL, LONG_TAIL, 1, "decode"),
@@ -2793,16 +2817,142 @@ def phase_train_check(dev: torch.device, arch: str, conditioned: bool = False,
         raise AssertionError(f"train_check {arch} launched a kernel: {launches}")
 
 
-def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: bool = True) -> None:
-    """The training path at full width and depth: ``build_lm_loader`` on the
-    card feeding ``Trainer.fit`` on ``arch``, seed-0 weights, seq 4096,
-    global batch 8 at the config's own ``grad_accum["train_4k"]``.  Each
-    step's time runs to its end on the card.  With ``resume`` a checkpoint
-    is saved at step ``TRAIN_CKPT_AT``, and a fresh ``Trainer.from_checkpoint``
-    must restore the parameters and optimizer state bit for bit, the step and the
-    sampler, then take TRAIN_RESUME_STEPS.  With ``trace`` one more step runs under
-    the profiler (at 130-280 K kernel launches a step it takes 40-80 s).
-    K1-K4 must not launch."""
+# the parts of a dense QKV-bias model's parameter tree (keystr -> the part of a leaf) that the AdamW update
+# check holds: every layer's QKV biases, layer 0's wq, and the first ADAMW_CHECK_ROWS rows of layer 0's
+# w_down and of the embedding
+_BLOCK0 = "['segments'][0]['blocks'][0]"
+ADAMW_CHECK_PICKS = {
+    **{f"{_BLOCK0}['mixer']['{b}']": lambda t: t for b in ("bq", "bk", "bv")},
+    f"{_BLOCK0}['mixer']['wq']": lambda t: t[0],
+    f"{_BLOCK0}['ffn']['w_down']": lambda t: t[0, :ADAMW_CHECK_ROWS],
+    "['embed']['tok']": lambda t: t[:, :ADAMW_CHECK_ROWS],
+}
+
+
+class UpdateCapture:
+    """Inside the block, the first call of ``launch.steps.apply_update`` (a
+    train step's update, after its gradients are summed) runs ``update``
+    (the optimizer's own unless given) and keeps on the host the ``picks``
+    (``ADAMW_CHECK_PICKS``) of the parameters, gradients and both moments
+    before it and of the parameters and moments after it, with the step,
+    the optimizer's config and the update's metrics (the card's global
+    gradient norm and learning rate).  Later calls run ``update`` alone."""
+
+    def __init__(self, picks: dict, update=None):
+        self.picks, self.update = picks, update
+        self.before = self.after = self.metrics = self.opt_cfg = self.step = self.peak_before_update = None
+
+    def __enter__(self):
+        from repro_torch.launch import steps
+
+        self._steps, self._real = steps, steps.apply_update
+        steps.apply_update = self._apply
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._steps.apply_update = self._real
+
+    def _take(self, trees: dict) -> dict:
+        from repro_torch.tree import tree_items
+
+        flat = {k: dict(tree_items(tree)) for k, tree in trees.items()}
+        return {name: {k: pick(flat[k][name]).detach().to("cpu", copy=True) for k in trees}
+                for name, pick in self.picks.items()}
+
+    def _apply(self, opt_cfg, params, grads, state):
+        update = self.update or self._real
+        if self.before is not None:
+            return update(opt_cfg, params, grads, state)
+        self.opt_cfg, self.step = opt_cfg, int(state["step"]) + 1
+        dev = state["step"].device
+        if dev.type == "cuda":  # the forward and backward passes' peak, before the update's temporaries
+            self.peak_before_update = torch.cuda.max_memory_allocated(dev)
+        self.before = self._take({"p": params, "g": grads, "m": state["m"], "v": state["v"]})
+        params, state, metrics = update(opt_cfg, params, grads, state)
+        self.after = self._take({"p": params, "m": state["m"], "v": state["v"]})
+        self.metrics = {k: float(v) for k, v in metrics.items()}
+        return params, state, metrics
+
+
+def adamw_host_update(opt_cfg, p, g, m, v, step: int, lr: float, grad_norm: float) -> tuple:
+    """``optim.apply_update``'s AdamW arithmetic for one leaf, written out
+    here and run where the tensors lie (the host), op for op in f32: the
+    gradient scaled by the clip from ``grad_norm`` (the whole tree's global
+    norm, not this leaf's), the moments, the bias corrections of ``step``,
+    weight decay, and ``lr``.  Returns the parameter and both moments after
+    the step, each cast to its dtype."""
+    f32 = torch.float32
+    gnorm = torch.tensor(grad_norm, dtype=f32)
+    scale = torch.clamp(opt_cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) if opt_cfg.clip_norm else 1.0
+    t = torch.tensor(step, dtype=f32)
+    bc1, bc2 = 1.0 - opt_cfg.b1 ** t, 1.0 - opt_cfg.b2 ** t
+    g = g.float() * scale
+    m32 = opt_cfg.b1 * m.float() + (1 - opt_cfg.b1) * g
+    v32 = opt_cfg.b2 * v.float() + (1 - opt_cfg.b2) * g * g
+    delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + opt_cfg.eps)
+    delta = delta + opt_cfg.weight_decay * p.float()
+    return (p.float() - torch.tensor(lr, dtype=f32) * delta).to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+
+def adamw_update_check(cap: UpdateCapture, grad_norm: float | None = None) -> dict:
+    """The ``adamw_bf16`` update of the captured parts (``cap``) held to
+    ``adamw_host_update`` on the host from the same parameters, gradients
+    and moments: the parameters and both moments after the step within one
+    bf16 ulp an element.  The moments must be bf16, and so must the
+    parameters held.  The clip takes ``grad_norm``, by default the norm the
+    update reported (the whole tree's); ``clip_active`` says whether it
+    scaled the gradients.  The host takes each part in pieces of
+    ADAMW_CHECK_PIECE elements, which its caches hold.  ``over`` names each
+    part over the bar."""
+    opt = cap.opt_cfg
+    gnorm = cap.metrics["grad_norm"] if grad_norm is None else grad_norm
+    leaves, over = {}, {}
+    for name, b in cap.before.items():
+        a = cap.after[name]
+        dtypes = {f"{when} {k}": t.dtype for when, d in (("before", b), ("after", a)) for k, t in d.items() if k != "g"}
+        if set(dtypes.values()) != {torch.bfloat16}:
+            raise AssertionError(f"adamw update check {name}: the moments and parameters must be bf16: {dtypes}")
+        b, a = ({k: t.reshape(-1) for k, t in d.items()} for d in (b, a))
+        # at warmup's first lr (3e-6) an update under half a bf16 ulp leaves a parameter as it was
+        row = {"shape": list(cap.before[name]["p"].shape), "params_changed": 0,
+               **{k: {"max_ulps": 0, "at_one_ulp": 0} for k in ("p", "m", "v")}}
+        for i in range(0, b["p"].numel(), ADAMW_CHECK_PIECE):
+            piece = slice(i, i + ADAMW_CHECK_PIECE)
+            want = adamw_host_update(opt, *(b[k][piece] for k in ("p", "g", "m", "v")), cap.step,
+                                     cap.metrics["lr"], gnorm)
+            row["params_changed"] += int((a["p"][piece] != b["p"][piece]).sum())
+            for key, w in zip(("p", "m", "v"), want):
+                got = a[key][piece]
+                differ = got.view(torch.int16) != w.view(torch.int16)
+                if differ.any():
+                    ulps = bf16_ulp_steps(got[differ], w[differ])
+                    row[key]["max_ulps"] = max(row[key]["max_ulps"], int(ulps.max()))
+                    row[key]["at_one_ulp"] += int((ulps == 1).sum())
+        leaves[name] = row
+        if max(row[k]["max_ulps"] for k in ("p", "m", "v")) > 1:
+            over[name] = row
+    return {"kind": opt.kind, "step": cap.step, "grad_norm": gnorm, "clip_norm": opt.clip_norm,
+            "clip_active": bool(opt.clip_norm and gnorm > opt.clip_norm), "lr": cap.metrics["lr"],
+            "moments": "bfloat16", "leaves": leaves, "over": over,
+            "bar": "params, m and v after the step: host vs card <= 1 bf16 ulp an element"}
+
+
+def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, layers: int | None = None,
+                drawn: int | None = None, update_check: bool = False) -> None:
+    """The training path at full width and depth (or cut to ``layers``):
+    ``build_lm_loader`` on the card feeding ``Trainer.fit`` on ``arch``,
+    seed-0 weights, seq 4096, global batch 8 at the config's own
+    ``grad_accum["train_4k"]``.  Each step's time runs to its end on the
+    card.  With ``resume`` a checkpoint is saved at step ``TRAIN_CKPT_AT``,
+    and a fresh ``Trainer.from_checkpoint`` must restore the parameters and
+    optimizer state bit for bit, the step and the sampler, then take
+    TRAIN_RESUME_STEPS.  No step runs under the profiler: at 130-280 K
+    kernel launches a step that took 40-80 s, and PERF.md §5 keeps the
+    traces of PRs 19-23.  With ``drawn`` the leaves the reference
+    initialises to zeros (QKV biases) are drawn from that seed
+    (``draw_zero_leaves``).  With ``update_check`` step 1's update is
+    captured (``UpdateCapture``: its seconds count in step 1's time) and
+    held to the host's (``adamw_update_check``).  K1-K4 must not launch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import CheckpointableSampler, SyntheticTokenDataset, build_lm_loader
@@ -2810,6 +2960,8 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
     from repro_torch.tree import tree_items, tree_map
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     accum = cfg.grad_accum["train_4k"]
     step_ms: list[float] = []
@@ -2837,6 +2989,8 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
         t0 = time.monotonic()
         trainer = Trainer(cfg, shape, tcfg=tcfg, device=dev)
         row["params"] = trainer.model.param_count()
+        if drawn is not None:
+            row["drawn"] = draw_zero_leaves(trainer.params, drawn)
         row["state_bytes"] = sum(t.numel() * t.element_size()
                                  for _, t in tree_items({"p": trainer.params, "o": trainer.opt_state}))
         trainer.bundle.fn = timed(trainer.bundle.fn)
@@ -2844,9 +2998,11 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
         _zero_kernel_launches()
         history, peaks = [], []
         first = TRAIN_CKPT_AT if resume else steps
+        capture = UpdateCapture(ADAMW_CHECK_PICKS) if update_check else contextlib.nullcontext()
         with pipe.auto_stop():
             torch.cuda.reset_peak_memory_stats(dev)
-            history += trainer.fit(pipe, steps=first, sampler=sampler)["history"]
+            with capture:
+                history += trainer.fit(pipe, steps=first, sampler=sampler)["history"]
             peaks.append(torch.cuda.max_memory_allocated(dev))
             if resume:
                 row["resume"] = check_resume(dev, cfg, shape, tcfg, trainer, loader)
@@ -2856,11 +3012,6 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
                 history += trainer.fit(pipe, steps=steps - first, sampler=sampler)["history"]
                 peaks.append(torch.cuda.max_memory_allocated(dev))
             health = {**trainer.health(), "data_wait_s": trainer.data_wait_s, "step_s": trainer.step_s}
-            if trace:  # one more step under the profiler, after the readings above
-                t_trace = time.monotonic()
-                row["step_trace"] = trace_step(dev, lambda: trainer.fit(pipe, steps=1, sampler=sampler), "gemm")
-                row["step_trace"]["seconds"] = time.monotonic() - t_trace
-                row["step_trace"]["note"] = f"step {steps + 1} under torch.profiler; kernel_ms sums the GEMM kernels"
         launches = _kernel_launches()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms, history = step_ms[:steps], history[:steps]
@@ -2877,7 +3028,15 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, trace: b
         "max_memory_allocated_gb": max(peaks) / 1e9, "kernel_launches": launches,
         "reading": "the timings and bytes are readings, not gates", "seconds": time.monotonic() - t0,
     })
+    if update_check:
+        t_check = time.monotonic()
+        row["adamw_update_check"] = adamw_update_check(capture)
+        row["adamw_update_check"]["seconds"] = time.monotonic() - t_check
+        peak = capture.peak_before_update
+        row["max_memory_allocated_before_update_gb"] = None if peak is None else peak / 1e9
     emit(row)
+    if update_check and row["adamw_update_check"]["over"]:
+        raise AssertionError(f"train {arch}: the update is over the bar: {row['adamw_update_check']['over']}")
     if len(history) != steps or not all(math.isfinite(h["loss"]) for h in history):
         raise AssertionError(f"train {arch}: {len(history)} of {steps} steps, losses {row['losses']}")
     if any(launches.values()):
@@ -3306,12 +3465,26 @@ def main() -> int:
               phase_train_check, dev, "musicgen-medium", conditioned=True)
         timed("train_check internvl2-2b conditioned=True", phase_train_check, dev, "internvl2-2b", conditioned=True)
         release_card()
-        # Qwen3's and Mamba2's steps were traced before (PERF.md §5); the time goes to DeepSeek's checks
-        timed(f"train qwen3-0.6b {TRAIN_STEPS} resume=True trace=False",
-              phase_train, dev, "qwen3-0.6b", TRAIN_STEPS, resume=True, trace=False)
-        timed("train mamba2-780m 2 resume=False trace=False",
-              phase_train, dev, "mamba2-780m", 2, resume=False, trace=False)
+        # OLMo-1B: non-parametric LayerNorm and a tied head, 0.2 B in 2 layers; Yi-6B: 32 q heads over 4 kv
+        # heads at d_model 4,096, 0.87 B in 2 layers, one row as DeepSeek-V3's.  Both on condition_attention's
+        # weights, OLMo's f32 step too (CONDITIONED keeps seed 0 for its f32 model_check): on the seed-0
+        # weights an H100's f32 OLMo leaves read up to 3.1e-3 of the CPU's, over TRAIN_F32_REL, and one f32
+        # ulp in the weights moves them by up to 3.9e-3 on the card (5.3e-6 on the conditioned weights;
+        # probes_torch/train_conditioning.py, NVIDIA H100 80GB HBM3, 700.00 W): the weights' conditioning
+        for arch, kw in (("olmo-1b", {}), ("yi-6b", {"seq": YI_CHECK_SEQ, "rows": 1})):
+            timed(f"train_check {arch} conditioned=True {kw}", phase_train_check, dev, arch, conditioned=True, **kw)
+            release_card()
+        timed(f"train qwen3-0.6b {TRAIN_STEPS} resume=True", phase_train, dev, "qwen3-0.6b", TRAIN_STEPS, resume=True)
+        timed(f"train mamba2-780m 2 resume=False layers={MAMBA2_TRAIN_LAYERS}",
+              phase_train, dev, "mamba2-780m", 2, resume=False, layers=MAMBA2_TRAIN_LAYERS)
         timed("train granite-moe-1b-a400m 2 resume=False", phase_train, dev, "granite-moe-1b-a400m", 2, resume=False)
+        release_card()
+        timed("train olmo-1b 2 resume=False", phase_train, dev, "olmo-1b", 2, resume=False)
+        release_card()
+        # adamw_bf16: step 1's update of a few leaves held to the host's; the QKV biases drawn, as its model_check
+        timed(f"train qwen1.5-110b 2 resume=False layers={QWEN15_TRAIN_LAYERS} drawn=3 update_check=True",
+              phase_train, dev, "qwen1.5-110b", 2, resume=False, layers=QWEN15_TRAIN_LAYERS, drawn=3,
+              update_check=True)
         release_card()
         timed("examples", phase_examples, dev, summary)
     except Exception:

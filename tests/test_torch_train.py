@@ -271,10 +271,9 @@ def _steps(ref, arch, dtype, accum, n_steps, monkeypatch=None, conditioned=False
         got_m.append({k: float(v) for k, v in m.items()})
         if n_moe:
             _check_own_routes(cfg, dtype, want_routes.probs[:n_moe], got_routes.probs)
-    return (tree_to_numpy(params), tree_to_numpy(opt), got_m,
+    return (tree_to_numpy(params), opt, got_m,
             jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params),
-            jax.tree.map(lambda a: np.asarray(a, np.float32) if a.dtype != jnp.int32 else np.asarray(a), ref_opt),
-            want_m)
+            jax.tree.map(np.asarray, ref_opt), want_m)
 
 
 def _flat(tree) -> dict:
@@ -288,7 +287,9 @@ def test_three_adamw_steps_match_the_reference_f32(reference_stack, arch):  # no
     tied head gives logits some 8x qwen3-smoke's (loss 22.7), so f32 rounds
     its gradient leaves 2-3e-5 apart between the two frameworks (qwen3's
     about 1e-6; measured on the CPU) and their norm 1.0-2.2e-5 apart over
-    the three steps."""
+    the three steps.  Every optimizer moment leaf is held to the
+    reference's in its dtype (``_check_moment``): the f32 moments, and the
+    bf16 ones of the ``adamw_bf16`` configs (qwen1.5, jamba, deepseek)."""
     params, opt, got_m, ref_params, ref_opt, want_m = _steps(reference_stack, arch, "float32", 1, 3)
     moe = port_configs.get_smoke_config(arch).moe is not None
     for got, want in zip(got_m, want_m):
@@ -299,9 +300,40 @@ def test_three_adamw_steps_match_the_reference_f32(reference_stack, arch):  # no
     ref_flat = _flat(ref_params)
     for k, a in _flat(params).items():
         np.testing.assert_allclose(a, ref_flat[k], atol=F32_PARAMS, rtol=0, err_msg=k)
-    ref_opt_flat = _flat(ref_opt)
-    assert _flat(opt).keys() == ref_opt_flat.keys()
+    ref_opt_flat, opt_flat = _flat(ref_opt), _flat(opt)
+    assert opt_flat.keys() == ref_opt_flat.keys()
     assert int(opt["step"]) == int(ref_opt["step"]) == 3
+    for k, want in ref_opt_flat.items():
+        if k == "['step']":
+            continue
+        _check_moment(k, opt_flat[k], want)
+
+
+def _check_moment(name: str, got: "torch.Tensor", want: np.ndarray) -> None:
+    """An optimizer moment leaf after 3 steps held to the reference's, in
+    the reference's dtype and against the leaf's largest |value| (``v``
+    holds squared gradients, so an absolute bar would see nothing).
+
+    f32: ``m`` within F32_GRAD, the bar of the gradients it averages; ``v``
+    within twice that, as squaring doubles a gradient's relative error (yi's
+    wk reads 1.0e-4 for m and 1.2e-4 for v).  bf16 (``adamw_bf16``): within
+    one bf16 ulp of the leaf's largest |value|.  An element is not held to
+    its own ulp: the moment is stored in bf16 each step, the two frameworks'
+    f32 gradients differ by some 1e-6 of a leaf, and where a later gradient
+    cancels most of an earlier moment that moment's rounding stays as many
+    ulps of the small remainder (qwen1.5's wk: 26,754 ulps on one element,
+    1.0 ulp of the leaf's largest value).  ``tests/test_torch_optim_ckpt.py``
+    holds the update to one bf16 ulp an element on the same gradients."""
+    assert str(got.dtype).removeprefix("torch.") == want.dtype.name, (name, got.dtype, want.dtype)
+    bf16 = want.dtype.name == "bfloat16"
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    top = float(np.abs(want).max())
+    if bf16:
+        bar = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0  # one bf16 ulp at |top|
+    else:
+        bar = F32_GRAD * top * (2 if name.startswith("['v']") else 1)
+    err = float(np.abs(got - want).max())
+    assert err <= bar, (name, err, bar)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
