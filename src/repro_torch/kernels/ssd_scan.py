@@ -53,9 +53,11 @@ import torch
 from . import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_KERNEL_HEAD_DIMS = (16, 32, 48, 64)  # P: a warp keeps (16 rows x P) of y in registers
+# P: the bf16 kernel takes x as one 64-column TMA panel (its columns past P read as zeros), and the f32
+# kernel is built for P / 16 = 1 .. 4 column groups of 16
+_KERNEL_HEAD_DIMS = (16, 32, 48, 64)
 _KERNEL_MAX_STATE = 128  # N: a multiple of 16, in one or two 64-column panels
-_TC_MAX_CHUNK = 256  # bf16: a chunk is at most four 64-row tiles, all in the kernel's ring at once
+_BF16_MAX_CHUNK = 256  # bf16: a chunk is at most four 64-row tiles, all in the kernel's ring at once
 _SMS_H100 = 132
 
 
@@ -198,8 +200,8 @@ def ssd_scan(
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     bf16 = kernel_route(x.dtype, p, n) == "wgmma_bf16"
-    if bf16 and chunk > _TC_MAX_CHUNK:
-        raise ValueError(f"ssd_scan: the bf16 kernel takes chunk up to {_TC_MAX_CHUNK}; got {chunk}")
+    if bf16 and chunk > _BF16_MAX_CHUNK:
+        raise ValueError(f"ssd_scan: the bf16 kernel takes chunk up to {_BF16_MAX_CHUNK}; got {chunk}")
     segments = segment_plan(bsz, h, l // chunk, _sms(x.device.index or 0)) if bf16 and x.numel() else 1
     if bsz * h * segments > 2**31 - 1 or bsz * l > 2**31 - 1:
         raise ValueError(f"ssd_scan: batch {bsz} x heads {h} x length {l} is too many blocks or rows")

@@ -1,5 +1,5 @@
-"""DeepSeek-V3's MLA, Yi-6B, OLMo-1B and Qwen1.5-110B at the reference's
-long serving shapes, cut to the CPU's size.
+"""DeepSeek-V3's MLA, Granite-MoE, MusicGen, InternVL2, Yi-6B, OLMo-1B and
+Qwen1.5-110B at the reference's long serving shapes, cut to the CPU's size.
 
 The reference's ``prefill_32k`` and ``decode_32k`` (``configs/base.py``)
 take every config's attention past ``_sdpa``'s 2,048-key threshold, where
@@ -23,9 +23,24 @@ those shapes:
     (``capacity_per_seq``): at the config's own factor a prefill of 4,097
     tokens may keep a pair that the prefill of 4,096 dropped, which is the
     reference's semantics and not a fault of either path;
-  - yi-smoke (4 heads over 2 kv heads), olmo-smoke (MHA) and qwen1.5-smoke
-    (4 heads over 2 kv heads, QKV biases drawn): the prefill's logits and
-    every layer's k and v within 2e-5.
+  - granite-moe-smoke (4 heads over 2 kv heads, 4 experts top 2 in every
+    layer) the same way: its prefill's logits and every layer's k and v
+    (2e-5), 8 greedy decode steps (1e-4), both on the reference's expert
+    choices, and at the capacity that drops no pair its decode steps
+    against its own longer prefill (2e-5);
+  - yi-smoke (4 heads over 2 kv heads), olmo-smoke (MHA), qwen1.5-smoke
+    (4 heads over 2 kv heads, QKV biases drawn), musicgen-smoke (MHA; tokens
+    (B, S, 4), their four embeddings summed, logits (B, 4, padded_vocab))
+    and internvl2-smoke (4 heads over 2 kv heads; its first 8 positions
+    take ``vis_embed @ vis_proj``, drawn with numpy, the same in both
+    packages; on ``condition_attention``'s weights): the prefill's logits and every layer's k and v within 2e-5;
+    and musicgen-smoke and internvl2-smoke through 8 greedy decode steps
+    (MusicGen's four ids a row fed back as (B, 1, 4)) against the
+    reference's decode (1e-4).
+
+Logits are compared over the real vocabulary: the head's padding columns
+(musicgen-smoke's 64 of 128) hold -2**30 in both packages, which would
+make any bar over the largest value pass.  On the CPU no kernel launches.
 """
 
 import dataclasses
@@ -49,7 +64,31 @@ CAP = S + 64  # decode_32k's cache: 64 slots past the prompt
 PREFILL_REL = 2e-5  # f32: of the largest reference value
 DECODE_REL = 1e-4
 SWAP_GAP_F32 = 1e-5  # f32: a route may differ only where the reference's k-th and (k+1)-th probabilities are closer
-DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK, GRANITE = "deepseek-v3-671b", "granite-moe-1b-a400m"
+# internvl2-smoke (no qk_norm) runs on condition_attention's weights: on its seed-0 weights moving every
+# weight by one f32 ulp moves the port's own prefill logits by 2.3-3.7e-5 of the largest at 2 x 4,096
+# tokens, as far as the port sits from the reference there (3.1e-5), over PREFILL_REL; on these 4.6-4.9e-7
+# and 5.0e-7 (tests/torch_parity_conditioning.py)
+CONDITIONED = ("internvl2-2b",)
+
+
+def _prompt(cfg, seed: int) -> dict:
+    """Seeded numpy prompts of B x S, the same values for both packages:
+    tokens (B, S), or (B, S, n_codebooks) codebook ids; a vision-prefix
+    config also takes ``vis_embed`` (B, vis_prefix_len, d_model), N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks > 1 else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)}
+    if cfg.vis_prefix_len:
+        batch["vis_embed"] = rng.standard_normal((B, cfg.vis_prefix_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _vocab(cfg, logits):
+    """The logits' real vocabulary columns; the head's padding columns
+    past them must hold -2**30."""
+    assert (np.asarray(logits[..., cfg.vocab_size:]) == -(2.0**30)).all()
+    return logits[..., :cfg.vocab_size]
 
 
 def _grow(cache):
@@ -81,16 +120,18 @@ def _assert_cache(got, want, names: tuple) -> None:
                 assert (err := rel_err(blk[name][:, :, :S], want_blk[name])) <= PREFILL_REL, f"cache {name} {err:.3g}"
 
 
-def _deepseek(ref, monkeypatch, steps: int):
-    """deepseek-v3-smoke through ``decode_32k``'s steps, the reference's run
-    first: its prefill of 2 x 4,096 tokens and ``steps`` greedy decode
-    steps, recording its expert choices; then the port's, replaying them.
-    Returns, for each side, the prefill's (logits, cache), each step's
-    logits and the ids fed."""
-    ref_model, ref_params, cfg, params = smoke_pair(ref, DEEPSEEK)
-    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+def _greedy(ref, monkeypatch, arch: str, steps: int):
+    """``arch``'s smoke config through ``decode_32k``'s steps, the
+    reference's run first: its prefill of the seeded 2 x 4,096-token prompts
+    (``_prompt``) and ``steps`` greedy decode steps (a multi-codebook
+    config feeds its ids back as (B, 1, n_codebooks)), recording its expert
+    choices; then the port's, replaying them.  Returns the port's config
+    and, for each side, the prefill's (logits, cache), each step's logits
+    and the ids fed."""
+    ref_model, ref_params, cfg, params = smoke_pair(ref, arch, conditioned=arch in CONDITIONED)
+    batch = _prompt(cfg, 2)
     with reference_routes(monkeypatch) as want_routes:
-        logits, cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
+        logits, cache = ref_model.prefill(ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
         want = {"prefill": jax.tree.map(np.asarray, (logits, cache)), "steps": [], "ids": []}
         cache = _grow(cache)
         for t in range(steps):
@@ -100,8 +141,8 @@ def _deepseek(ref, monkeypatch, steps: int):
             want["steps"].append(np.asarray(logits))
     prefill, decode = long_steps(cfg, "decode_32k", CAP, B)
     launches = fa.flash_attention.launches
-    with route_check.RouteRecorder(replay=want_routes.idx) as got_routes:
-        logits, cache = prefill(params, {"tokens": tokens}, seq_cap=CAP)
+    with route_check.RouteRecorder(replay=want_routes.idx if cfg.moe else None) as got_routes:
+        logits, cache = prefill(params, batch, seq_cap=CAP)
         got = {"prefill": (logits, jax.tree.map(torch.clone, cache)), "steps": [], "ids": []}
         for t in range(steps):
             ids = logits.argmax(dim=-1)[:, None].to(torch.int32)
@@ -109,17 +150,27 @@ def _deepseek(ref, monkeypatch, steps: int):
             got["ids"].append(ids.numpy())
             got["steps"].append(logits)
     assert fa.flash_attention.launches == launches  # CPU tensors: the plain version
-    _assert_routes(cfg, want_routes.probs, got_routes.probs, 1 + steps)
-    return got, want
+    if cfg.moe:
+        _assert_routes(cfg, want_routes.probs, got_routes.probs, 1 + steps)
+    return cfg, got, want
+
+
+def _assert_decode(cfg, got: dict, want: dict) -> None:
+    """Each greedy step fed the reference's ids, and its logits within
+    DECODE_REL of the largest value of the reference's."""
+    for t, (logits, want_logits) in enumerate(zip(got["steps"], want["steps"], strict=True)):
+        np.testing.assert_array_equal(got["ids"][t], want["ids"][t], err_msg=f"step {t} ids")
+        err = rel_err(_vocab(cfg, logits), _vocab(cfg, want_logits))
+        assert err <= DECODE_REL, f"decode step {t} {err:.3g}"
 
 
 def test_deepseek_mla_prefill_past_the_chunked_attention_threshold(reference_stack, monkeypatch):  # noqa: F811
     """2 x 4,096 tokens through the ``decode_32k`` step's prefill: logits
     and every layer's ``ckv`` and ``k_rope`` within 2e-5 of the largest
     reference value; the latent cache's slots past the prompt untouched."""
-    got, want = _deepseek(reference_stack, monkeypatch, 0)
+    cfg, got, want = _greedy(reference_stack, monkeypatch, DEEPSEEK, 0)
     (logits, cache), (want_logits, want_cache) = got["prefill"], want["prefill"]
-    assert (err := rel_err(logits, want_logits)) <= PREFILL_REL, f"prefill logits {err:.3g}"
+    assert (err := rel_err(_vocab(cfg, logits), _vocab(cfg, want_logits))) <= PREFILL_REL, f"prefill logits {err:.3g}"
     _assert_cache(cache, want_cache, ("ckv", "k_rope"))
 
 
@@ -128,25 +179,22 @@ def test_deepseek_absorbed_decode_over_a_long_latent_cache(reference_stack, monk
     latent cache of 4,160 slots: the same ids as the reference's, and each
     step's logits within 1e-4 of the largest value of the reference's
     decode on its cache grown to 4,160."""
-    got, want = _deepseek(reference_stack, monkeypatch, STEPS)
-    for t in range(STEPS):
-        np.testing.assert_array_equal(got["ids"][t], want["ids"][t], err_msg=f"step {t} ids")
-        assert (err := rel_err(got["steps"][t], want["steps"][t])) <= DECODE_REL, f"decode step {t} {err:.3g}"
+    _assert_decode(*_greedy(reference_stack, monkeypatch, DEEPSEEK, STEPS))
 
 
-def test_deepseek_absorbed_decode_repeats_the_longer_prefill(reference_stack):  # noqa: F811
-    """deepseek-v3-smoke at a capacity factor of experts / top-k, where
-    ``capacity_per_seq`` reaches the sequence's length and no pair is
-    dropped: 8 greedy absorbed decode steps after the 4,096-token prompt,
-    the first and the last against the port's own prefill of the prompt
-    and the ids fed so far (4,097 tokens, padded to 4,160 for the kernel,
-    and 4,104), whose last logits they must repeat within 2e-5."""
-    _, _, cfg, params = smoke_pair(reference_stack, DEEPSEEK)
+def _decode_repeats_the_longer_prefill(ref, arch: str) -> None:
+    """``arch``'s smoke config at a capacity factor of experts / top-k,
+    where ``capacity_per_seq`` reaches the sequence's length and no pair is
+    dropped: 8 greedy decode steps after the 4,096-token prompt, the first
+    and the last against the port's own prefill of the prompt and the ids
+    fed so far (4,097 tokens, padded to 4,160 for the kernel, and 4,104),
+    whose last logits they must repeat within 2e-5."""
+    _, _, cfg, params = smoke_pair(ref, arch)
     moe = cfg.moe
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         moe, capacity_factor=moe.n_experts / moe.experts_per_token))
     prefill, decode = long_steps(cfg, "decode_32k", CAP, B)
-    fed = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    fed = _prompt(cfg, 2)["tokens"]
     logits, cache = prefill(params, {"tokens": fed}, seq_cap=CAP)
     for t in range(STEPS):
         ids = logits.argmax(dim=-1)[:, None].to(torch.int32)
@@ -157,21 +205,58 @@ def test_deepseek_absorbed_decode_repeats_the_longer_prefill(reference_stack):  
             assert (err := rel_err(logits, again)) <= PREFILL_REL, f"decode step {t} against prefill {err:.3g}"
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b", "qwen1.5-110b"])
+def test_deepseek_absorbed_decode_repeats_the_longer_prefill(reference_stack):  # noqa: F811
+    """DeepSeek's absorbed decode at the capacity that drops no pair
+    (``_decode_repeats_the_longer_prefill``)."""
+    _decode_repeats_the_longer_prefill(reference_stack, DEEPSEEK)
+
+
+def test_granite_prefill_past_the_chunked_attention_threshold(reference_stack, monkeypatch):  # noqa: F811
+    """granite-moe-smoke, 2 x 4,096 tokens through the ``decode_32k``
+    step's prefill on the reference's expert choices: logits and every
+    layer's k and v within 2e-5 of the largest reference value; the port's
+    own choices equal the reference's but at a near-tie."""
+    cfg, got, want = _greedy(reference_stack, monkeypatch, GRANITE, 0)
+    (logits, cache), (want_logits, want_cache) = got["prefill"], want["prefill"]
+    assert (err := rel_err(_vocab(cfg, logits), _vocab(cfg, want_logits))) <= PREFILL_REL, f"prefill logits {err:.3g}"
+    _assert_cache(cache, want_cache, ("k", "v"))
+
+
+def test_granite_decode_repeats_the_longer_prefill(reference_stack):  # noqa: F811
+    """Granite-MoE's decode at the capacity that drops no pair
+    (``_decode_repeats_the_longer_prefill``): the step Granite's
+    ``decode_32k`` check on the card holds to the prefill of one token more."""
+    _decode_repeats_the_longer_prefill(reference_stack, GRANITE)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "internvl2-2b", GRANITE])
+def test_decode_past_the_chunked_attention_threshold(reference_stack, monkeypatch, arch):  # noqa: F811
+    """8 greedy decode steps after the 2 x 4,096-token prompts, into a
+    cache of 4,160 slots: the same ids as the reference's (MusicGen's four
+    a row) and each step's logits within 1e-4 of the largest value of the
+    reference's decode on its cache grown to 4,160 (Granite on the
+    reference's expert choices)."""
+    _assert_decode(*_greedy(reference_stack, monkeypatch, arch, STEPS))
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b", "qwen1.5-110b", "musicgen-medium", "internvl2-2b"])
 def test_dense_prefill_past_the_chunked_attention_threshold(reference_stack, arch):  # noqa: F811
     """2 x 4,096 tokens through the ``prefill_32k`` step: logits and every
     layer's k and v within 2e-5 of the largest reference value.  Qwen1.5's
     QKV biases, which the reference initialises to zeros, are drawn
-    (``draw_zero_leaves``, the same values in both packages)."""
+    (``draw_zero_leaves``, the same values in both packages); MusicGen
+    takes codebook ids (B, S, 4), InternVL2 ``vis_embed`` over its first
+    positions (on ``condition_attention``'s weights: ``CONDITIONED``)."""
     drawn = 5 if arch == "qwen1.5-110b" else None
-    ref_model, ref_params, cfg, params = smoke_pair(reference_stack, arch, drawn=drawn)
+    ref_model, ref_params, cfg, params = smoke_pair(reference_stack, arch, drawn=drawn,
+                                                    conditioned=arch in CONDITIONED)
     if drawn is not None:
         assert cfg.qkv_bias and params["segments"][0]["blocks"][0]["mixer"]["bq"].any()
-    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    batch = _prompt(cfg, 3)
     prefill, _ = long_steps(cfg, "prefill_32k", S, B)
     launches = fa.flash_attention.launches
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     assert fa.flash_attention.launches == launches
-    want_logits, want_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)})
-    assert (err := rel_err(logits, want_logits)) <= PREFILL_REL, f"prefill logits {err:.3g}"
+    want_logits, want_cache = ref_model.prefill(ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    assert (err := rel_err(_vocab(cfg, logits), _vocab(cfg, want_logits))) <= PREFILL_REL, f"prefill logits {err:.3g}"
     _assert_cache(cache, want_cache, ("k", "v"))

@@ -97,7 +97,7 @@ def _ref_route(cfg, p, x):
     return np.asarray(jax.lax.top_k(jax.nn.softmax(logits, axis=-1), cfg.moe.experts_per_token)[1])
 
 
-@pytest.mark.parametrize("seq", [1, 7, 24, 512, 4096])
+@pytest.mark.parametrize("seq", [1, 7, 24, 512, 4096, 32768])
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-1.5-large-398b"])
 def test_capacity_per_seq_matches_the_reference(reference_stack, arch, seq):  # noqa: F811
     from repro import configs as ref_configs
@@ -107,6 +107,7 @@ def test_capacity_per_seq_matches_the_reference(reference_stack, arch, seq):  # 
         cfg, ref_cfg = getattr(port_configs, get)(arch), getattr(ref_configs, get)(arch)
         assert moe.capacity_per_seq(cfg, seq) == ref_moe.capacity_per_seq(ref_cfg, seq)
     assert moe.capacity_per_seq(port_configs.get_config("granite-moe-1b-a400m"), 512) == 160
+    assert moe.capacity_per_seq(port_configs.get_config("granite-moe-1b-a400m"), 32768) == 10240  # prefill_32k
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -251,11 +251,12 @@ def rel_err(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-def smoke_pair(ref, arch: str, seed: int = 0, drawn: int | None = None):
+def smoke_pair(ref, arch: str, seed: int = 0, drawn: int | None = None, conditioned: bool = False):
     """``arch``'s smoke config in f32 in both packages and the reference's
     seed-``seed`` weights (with ``drawn``, its zero-initialised leaves drawn
-    by ``draw_zero_leaves`` from that seed): (reference model, its params,
-    the port's config, the same params as the port's CPU tensors)."""
+    by ``draw_zero_leaves`` from that seed; with ``conditioned``, scaled by
+    ``condition_attention``): (reference model, its params, the port's
+    config, the same params as the port's CPU tensors)."""
     import dataclasses
 
     import jax
@@ -270,6 +271,8 @@ def smoke_pair(ref, arch: str, seed: int = 0, drawn: int | None = None):
     params_np = jax.tree.map(np.asarray, ref_model.init(jax.random.PRNGKey(seed)))
     if drawn is not None:
         params_np = draw_zero_leaves(params_np, drawn)
+    if conditioned:
+        params_np = condition_attention(cfg, params_np)
     return ref_model, jax.tree.map(jnp.asarray, params_np), cfg, params_from_reference(params_np, device="cpu")
 
 
