@@ -12,7 +12,10 @@ and a copy of the same bytes), then runs
   - the port's image loader at ImageNet training geometry (256x256 RGB
     frames, batch 128, random 224x224 crops and flips decoded on the card),
     checks every delivered batch against the same loader run on the CPU,
-    and times one batch's host→device copy;
+    and times one batch's host→device copy; then at a batch of 4 over 64
+    of the frames with one read failed (``loader_holes``), which blocked
+    the loader for good until its slab ring counted the chunked slot
+    binder's run-ahead: 15 dense batches, each equal to the CPU run's;
   - the same frames from the sharded record store (``shards``): packed into
     6 shards of 256 and read (a) by mmap, (b) over loopback HTTP through a
     prefetch cache of about two shards, (c) projected to the image column
@@ -71,7 +74,7 @@ and a copy of the same bytes), then runs
     prefill of 32,704 tokens, then 64 greedy steps to the cache's last
     slot); the decode step after a 32k prompt against the prefill of one
     token more; DeepSeek-V3 in 4 layers at ``prefill_32k`` and
-    ``decode_32k`` (one row: 64 absorbed steps over the 32,768-slot latent
+    ``decode_32k`` (2 rows: 64 absorbed steps over the 32,768-slot latent
     cache) and its decode step against the prefill of one token more in its
     3 dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` (2 rows);
     Jamba-1.5-Large in 3 layers at ``prefill_32k`` and ``decode_32k`` (2
@@ -102,9 +105,11 @@ and a copy of the same bytes), then runs
     ``Trainer.from_checkpoint`` restores bit for bit and then steps on from,
     Mamba2-780m (cut to 12 layers) for 2 steps, Granite-MoE-1B-A400M for 2
     steps (its aux loss beside the LM loss), OLMo-1B for 2 steps (both at
-    full depth), and Qwen1.5-110B cut to 2 layers for 2 steps on
+    full depth), Qwen1.5-110B cut to 2 layers for 2 steps on
     ``adamw_bf16``, step 1's update of a few parts of its parameters held
-    on the host to one bf16 ulp (``adamw_update_check``); and 2 steps of
+    on the host to one bf16 ulp (``adamw_update_check``), DeepSeek-V3 in
+    its 3 dense MLA layers and the MTP block on ``adamw_bf16`` and Yi-6B
+    cut to 16 layers on f32 moments, 2 steps each; and 2 steps of
     MusicGen-medium (cut to 24 layers) and InternVL2-2B at the same
     sequence and batch through ``build_step`` on ``train_batch``'s codebook
     labels and vision prefix (``phase_train_steps``).  Training launches
@@ -221,7 +226,10 @@ CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check promp
 # prefill, a row of 32,768 tokens, holds about 7 GB of intermediates in an MLA layer (q, k, v, the padded
 # v and their copies for K3) and about 30 GB in the MoE layer (apply_moe keeps the dispatched tokens and
 # the experts' outputs, 4.7 GB each at 1,280 slots an expert, and combines 262,144 pairs of 7,168 values
-# in f32, 7.5 GB twice): one row reckons at about 62 GB, two at about 93 GB
+# in f32, 7.5 GB twice): one row reckoned at about 62 GB, two at about 93 GB, and one row peaked at 63.72 GB
+# (NVIDIA H100 80GB HBM3, 700.00 W).  apply_moe now sums the k gated outputs into one f32 (B, S, D)
+# accumulator (0.94 GB a row) and lets the dispatched tokens and the experts' intermediates go before the
+# combine: about 12-13 GB a row in the MoE layer at its peak, 2 rows about 60-68 GB beside the 31.6 GB
 # Jamba-1.5-large in JAMBA_LONG_LAYERS layers reckons at about 19 GB a row of 32,768 tokens in its MoE
 # layer (5,120 slots an expert at capacity factor 1.25: the dispatched tokens 1.34 GB, the experts' three
 # intermediates about 4 GB each, their outputs 1.34 GB, two f32 copies of 65,536 pairs 2.1 GB each) and
@@ -236,7 +244,7 @@ CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check promp
 # a row: 4 rows, so its K3 shape is Qwen3-0.6B's (K3_SHAPE_OF).  Mamba2-780m: 1.6 GB; a 75 MB state and
 # about 2 GB of transients a row in a layer: 8 rows (long_500k's row of 524,288 peaked at 45.9 GB)
 LONG_ROWS = {("qwen3-0.6b", "prefill_32k"): 4, ("qwen3-0.6b", "decode_32k"): 8, ("mamba2-780m", "long_500k"): 1,
-             ("deepseek-v3-671b", "prefill_32k"): 1, ("deepseek-v3-671b", "decode_32k"): 1,
+             ("deepseek-v3-671b", "prefill_32k"): 2, ("deepseek-v3-671b", "decode_32k"): 2,
              ("yi-6b", "prefill_32k"): 2, ("olmo-1b", "prefill_32k"): 2,
              ("jamba-1.5-large-398b", "prefill_32k"): 2, ("jamba-1.5-large-398b", "decode_32k"): 2,
              ("qwen1.5-110b", "prefill_32k"): 2,
@@ -307,6 +315,24 @@ QWEN3_TRAIN_LAYERS, MAMBA2_TRAIN_LAYERS = 14, 12
 # MusicGen-medium's train_4k steps in 24 of its 48 layers, as Mamba2's: 0.70 B parameters, about 7 GB of
 # parameters and moments (InternVL2-2B's 24 layers, its full depth: 1.89 B, about 19 GB)
 MUSICGEN_TRAIN_LAYERS = 24
+# train: DeepSeek-V3 in its 3 dense MLA layers (first_k_dense) and the MTP block, which is dense too
+# (block_kinds()[0]), on adamw_bf16 at accum 8: the embedding and the head 0.93 B each, 0.58 B a dense
+# layer, the MTP block 0.69 B, 4.29 B in all, about 25.7 GB of bf16 parameters and moments and 8.6 GB of
+# bf16 gradients (twice that while a microbatch's gradients are summed).  No MoE layer: one layer of 256
+# experts holds 11.3 B parameters, about 90 GB of adamw_bf16 state alone
+DEEPSEEK_TRAIN_LAYERS = 3
+# train: Yi-6B on f32 AdamW moments (its config's adamw) at accum 4, 2 rows a microbatch: 0.524 B parameters
+# outside the layers and 0.173 B a layer, 10 bytes a parameter of bf16 parameters and f32 moments, 2 of the
+# summed bf16 gradients and 2 more of a microbatch's while they are summed.  24 layers: 4.68 B, 56.1 GB of
+# state and summed gradients, 65.5 GB with a microbatch's, then the backward's transients (f32 logits of
+# 2 x 4,096 x 64,000 and their gradient, 2.1 GB each, one recomputed layer, 24 saved layer inputs) of about
+# 8-12 GB: 73-78 GB, less than 8 GB under the card's 80.  16 layers: 3.29 B, 39.5 GB, 46.0 GB with a
+# microbatch's, about 54-58 GB at the peak; the update's f32 temporaries (about four of the largest leaf,
+# the 0.26 B embedding: 4.2 GB) come after a microbatch's gradients are freed.  Full depth (32 layers,
+# 72.7 GB before activations) does not fit
+YI_TRAIN_LAYERS = 16
+# loader_holes: the image loader at a batch of 4 over the first 64 frames, one read failed (ROADMAP F-ref-5)
+HOLES_BATCH, HOLES_FRAMES, HOLES_FAILED, HOLES_LIMIT_S = 4, 64, 7, 120.0
 
 
 def emit(obj: dict) -> None:
@@ -660,6 +686,91 @@ def phase_main(ds, dev: torch.device, summary: dict) -> None:
     if worst["over_bar"]:
         raise AssertionError(f"{worst['over_bar']} decoded elements over the bar against the CPU run")
     summary["dequant_normalize_augment"]["launches"] = launches
+    summary["dequant_normalize_augment"]["max_abs_err"] = max(
+        summary["dequant_normalize_augment"]["max_abs_err"], worst["max_abs_err"])
+
+
+class FailedRead:
+    """``ds`` with ``read_bytes(failed)`` raising, every other read as ``ds``'s."""
+
+    def __init__(self, ds, failed: int):
+        self.ds, self.failed = ds, failed
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def read_bytes(self, i: int):
+        if i == self.failed:
+            raise OSError(f"planted failed read of sample {i}")
+        return self.ds.read_bytes(i)
+
+
+def phase_loader_holes(ds, dev: torch.device, summary: dict) -> None:
+    """The image loader at a batch of HOLES_BATCH, its default chunk of 16,
+    over the first HOLES_FRAMES frames in order, ``DeviceDecode`` with flip
+    and crop, and sample HOLES_FAILED's read failed: the slot binder binds
+    a chunk's 16 slots, four slabs, before it hands a row on, and behind
+    the hole each batch takes its last row from the next slab.  Until the
+    slab ring counted that run-ahead the loader blocked for good here
+    (ROADMAP F-ref-5).  The card's run drains on a thread within
+    HOLES_LIMIT_S; its (HOLES_FRAMES - 1) // HOLES_BATCH batches must equal
+    the same loader's CPU run (K1's plain version) bit for bit, and K1 must
+    launch once a batch."""
+    import threading
+
+    from repro_torch.data import CheckpointableSampler, build_image_loader
+    from repro_torch.data.transfer import DeviceDecode
+    from repro_torch.kernels import dequant_normalize as dn
+
+    def loader(device):
+        return build_image_loader(
+            FailedRead(ds, HOLES_FAILED), batch_size=HOLES_BATCH, hw=FRAME, device=device,
+            sampler=CheckpointableSampler(HOLES_FRAMES, batch_size=1, shuffle=False),
+            device_decode=DeviceDecode(MEAN, STD, out_hw=CROP, flip=True, crop=True, seed=0))
+
+    def within_limit(pipe) -> list[torch.Tensor]:
+        got: list[torch.Tensor] = []
+
+        def run():
+            with pipe.auto_stop():
+                for batch in pipe:
+                    got.append(batch["images"])
+
+        reader = threading.Thread(target=run, daemon=True)
+        reader.start()
+        reader.join(timeout=HOLES_LIMIT_S)
+        if reader.is_alive():
+            pipe.stop()  # closes the arena, which wakes a blocked slot wait
+            raise AssertionError(f"loader_holes: the loader blocked after {len(got)} batches")
+        return got
+
+    t0 = time.monotonic()
+    host = within_limit(loader("cpu"))
+    pipe = loader(dev)
+    dn.dequant_normalize_augment.launches = 0
+    card = within_limit(pipe)
+    torch.cuda.synchronize()
+    launches = dn.dequant_normalize_augment.launches
+    stats = {s.name: s for s in pipe.stats()}
+    want = (HOLES_FRAMES - 1) // HOLES_BATCH
+    worst = max((compare(g.cpu(), w) for g, w in zip(card, host)), key=lambda r: (r["over_bar"], r["max_abs_err"]))
+    row = {"phase": "loader_holes", "frames": HOLES_FRAMES, "batch": HOLES_BATCH, "chunk": 16,
+           "failed_sample": HOLES_FAILED, "batches": len(card), "cpu_batches": len(host), "expected": want,
+           "read_failed": stats["read"].num_failed, "num_slabs": stats["batch"].num_slabs,
+           "slabs_in_flight": stats["batch"].slabs_in_flight, "k1_launches": launches,
+           "shapes": sorted({str((b.device.type, tuple(b.shape))) for b in card}),
+           "vs_cpu_run": worst, "seconds": time.monotonic() - t0}
+    emit(row)
+    if len(card) != want or len(host) != want or row["read_failed"] != 1:
+        raise AssertionError(f"loader_holes: {len(card)} (card) / {len(host)} (cpu) batches and "
+                             f"{row['read_failed']} failed reads, expected {want} and 1")
+    if row["shapes"] != [str((dev.type, (HOLES_BATCH, 3, *CROP)))]:
+        raise AssertionError(f"loader_holes: delivered {row['shapes']}")
+    if launches != len(card):
+        raise AssertionError(f"loader_holes: K1 launched {launches} times for {len(card)} batches")
+    if worst["over_bar"] or worst["mismatches"]:
+        raise AssertionError(f"loader_holes: K1 differs from its plain version's CPU run: {worst}")
+    count_launches(summary, "loader_holes", {"dequant_normalize_augment": launches})
     summary["dequant_normalize_augment"]["max_abs_err"] = max(
         summary["dequant_normalize_augment"]["max_abs_err"], worst["max_abs_err"])
 
@@ -2121,7 +2232,7 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     bf16, seeded on the card, causal, tile 128 (the tile ``_causal_flash``
     picks), at the rows ``LONG_ROWS`` gives its ``prefill_32k``:
     Qwen3-0.6B's q (4,16,32768,128) against k/v (4,8,32768,128);
-    DeepSeek-V3's MLA, q/k (1,128,32768,192) and v zero-padded from 128 to
+    DeepSeek-V3's MLA, q/k (2,128,32768,192) and v zero-padded from 128 to
     192 as ``mla_prefill`` pads it; Yi-6B's q (2,32,32768,128) against k/v
     (2,4,32768,128); OLMo-1B's (2,16,32768,128), MHA; Qwen1.5-110B's q
     (2,64,32768,128) against k/v (2,8,32768,128), which is Jamba-1.5-large's
@@ -2601,7 +2712,7 @@ def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
     rows: a prefill of 32,704 tokens into the 32,768-slot cache, then 64
     greedy decode steps to its last slot); the decode step after a 32k
     prompt against the prefill of one token more; DeepSeek-V3 in 4 layers
-    at ``prefill_32k`` and ``decode_32k`` (one row each, 64 absorbed decode
+    at ``prefill_32k`` and ``decode_32k`` (2 rows each, 64 absorbed decode
     steps over the 32,768-slot latent cache) and its decode check in its 3
     dense layers; Yi-6B and OLMo-1B at ``prefill_32k`` and ``decode_32k``
     (2 rows) and Yi-6B's decode check in 4 layers; Jamba in
@@ -3053,7 +3164,10 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, layers: 
     initialises to zeros (QKV biases) are drawn from that seed
     (``draw_zero_leaves``).  With ``update_check`` step 1's update is
     captured (``UpdateCapture``: its seconds count in step 1's time) and
-    held to the host's (``adamw_update_check``).  K1-K4 must not launch."""
+    held to the host's (``adamw_update_check``).  The moments must be in
+    the dtype the config's optimizer names (bf16 for ``adamw_bf16``); an
+    MTP config's LM and MTP losses are read apart and must be finite.
+    K1-K4 must not launch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import CheckpointableSampler, SyntheticTokenDataset, build_lm_loader
@@ -3094,6 +3208,9 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, layers: 
             row["drawn"] = draw_zero_leaves(trainer.params, drawn)
         row["state_bytes"] = sum(t.numel() * t.element_size()
                                  for _, t in tree_items({"p": trainer.params, "o": trainer.opt_state}))
+        row["optimizer"] = trainer.opt_cfg.kind
+        row["moments"] = sorted({str(t.dtype) for _, t in tree_items({"m": trainer.opt_state["m"],
+                                                                     "v": trainer.opt_state["v"]})})
         trainer.bundle.fn = timed(trainer.bundle.fn)
         pipe, sampler = loader()
         _zero_kernel_launches()
@@ -3128,6 +3245,8 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, layers: 
         "losses": [h["loss"] for h in history],
         **({"loss_lm": [h["loss_lm"] for h in history], "aux": [h["aux"] for h in history]}
            if moe_layers(cfg) else {}),
+        **({"loss_lm": [h["loss_lm"] for h in history], "loss_mtp": [h["loss_mtp"] for h in history]}
+           if cfg.mtp else {}),
         "max_memory_allocated_gb": max(peaks) / 1e9, "kernel_launches": launches,
         "reading": "the timings and bytes are readings, not gates", "seconds": time.monotonic() - t0,
     })
@@ -3142,6 +3261,11 @@ def phase_train(dev: torch.device, arch: str, steps: int, resume: bool, layers: 
         raise AssertionError(f"train {arch}: the update is over the bar: {row['adamw_update_check']['over']}")
     if len(history) != steps or not all(math.isfinite(h["loss"]) for h in history):
         raise AssertionError(f"train {arch}: {len(history)} of {steps} steps, losses {row['losses']}")
+    if cfg.mtp and not all(math.isfinite(x) for x in row["loss_lm"] + row["loss_mtp"]):
+        raise AssertionError(f"train {arch}: LM losses {row['loss_lm']}, MTP losses {row['loss_mtp']}")
+    want_moments = ["torch.bfloat16"] if row["optimizer"] == "adamw_bf16" else ["torch.float32"]
+    if row["moments"] != want_moments:
+        raise AssertionError(f"train {arch}: {row['optimizer']} moments in {row['moments']}, not {want_moments}")
     if any(launches.values()):
         raise AssertionError(f"train {arch} launched a kernel: {launches}")
 
@@ -3594,6 +3718,7 @@ def main() -> int:
             ds = SyntheticImageDataset.materialize(d, FRAMES, hw=FRAME, seed=0)
             emit({"phase": "dataset", "frames": FRAMES, "hw": list(FRAME), "seconds": time.monotonic() - t0})
             timed("main", phase_main, ds, dev, summary)
+            timed("loader_holes", phase_loader_holes, ds, dev, summary)
             timed("example", phase_example, ds, dev, summary)
             timed("shards", phase_shards, ds, pathlib.Path(d), dev, summary)
         timed("serve qwen3-0.6b", phase_serve, dev, summary, "qwen3-0.6b")  # K3
@@ -3648,6 +3773,13 @@ def main() -> int:
               update_check=True)
         release_card()
         # codebook labels and a vision prefix at train_4k's sequence, through build_step on train_batch
+        # the 3 dense MLA layers and the MTP block on adamw_bf16; Yi-6B on f32 moments at the depth that fits
+        timed(f"train deepseek-v3-671b 2 resume=False layers={DEEPSEEK_TRAIN_LAYERS}", phase_train, dev,
+              "deepseek-v3-671b", 2, resume=False, layers=DEEPSEEK_TRAIN_LAYERS)
+        release_card()
+        timed(f"train yi-6b 2 resume=False layers={YI_TRAIN_LAYERS}", phase_train, dev, "yi-6b", 2, resume=False,
+              layers=YI_TRAIN_LAYERS)
+        release_card()
         timed(f"train musicgen-medium 2 layers={MUSICGEN_TRAIN_LAYERS}", phase_train_steps, dev, "musicgen-medium", 2,
               layers=MUSICGEN_TRAIN_LAYERS)
         release_card()

@@ -31,8 +31,14 @@ failure semantics).  What differs is the device leg:
   packer binds them inside its chunk and blocks for good when one chunk
   completes more rows than the ring holds (ROADMAP F-ref-4).
 
-The slab ring keeps the JAX package's size (``_ring_size``): the transfer's
-hold window plus the slabs in flight.
+The slab ring is the JAX package's size plus the chunked slot binder's
+run-ahead (``_ring_size``): the transfer's hold window, the slabs in flight,
+and the slabs one binder chunk fills before it hands any row on,
+``(chunk - 1) // batch_size`` of them.  The JAX package's ring leaves that
+run-ahead out, and one failed read then blocks its image loader for good
+at batches smaller than the chunk (ROADMAP F-ref-5).  At ImageNet training
+geometry (batch 128, chunk 16) the run-ahead is 0: the ring stays 10 slabs
+of 25.2 MB.
 """
 
 from __future__ import annotations
@@ -58,25 +64,48 @@ from .transfer import DeviceDecode, DeviceTransfer
 
 
 def _ring_size(
-    arena_slabs: int | None, transfer: DeviceTransfer, transfer_chunk: int = 2
+    arena_slabs: int | None,
+    transfer: DeviceTransfer,
+    transfer_chunk: int = 2,
+    *,
+    batch_size: int = 1,
+    bind_chunk: int = 1,
 ) -> int:
     """Slab-ring size for a loader: the ring must outsize the slabs pinned
-    at once (transfer hold + inter-stage queues + the one being filled) or
-    the binder deadlocks the pipeline.  The batch→transfer queue is widened
-    to the transfer stage's chunk (so the chunked drain can actually fill
-    its chunks), and every batch parked there pins a slab — the floor
-    grows with ``transfer_chunk`` past the default 2.  An explicit request
-    below the floor is an error, not a silent inflation — the caller set
-    it as a memory cap and must raise it (or the sink buffer) knowingly."""
+    at once or the binder deadlocks the pipeline.  A slab can be pinned by
+
+    * the transfer's hold window (``transfer.hold_slabs``);
+    * the batch→transfer queue and the transfer's dispatch chunk
+      (``max(2, transfer_chunk)``: every batch parked there pins a slab);
+    * the slab the batch stage assembles: behind a failed read, each batch
+      takes its last row from the next slab, so the previous slab stays
+      pinned until that row arrives (1);
+    * the slab the binder is filling (1);
+    * the binder's run-ahead: a chunked slot stage (``bind_chunk`` > 1)
+      hands its rows on only when the whole chunk is bound, so up to
+      ``bind_chunk - 1`` bound rows, ``(bind_chunk - 1) // batch_size``
+      full slabs besides the one being filled, wait inside it.
+
+    The JAX package's floor stops before the last term; at a batch of 4
+    and a chunk of 16 its ring of 10 then holds the six held slabs, the
+    assembling slab behind one failed read and three slabs of a chunk
+    that waits for a fourth, and the loader blocks for good (ROADMAP
+    F-ref-5).  A per-item binder (``bind_chunk`` 1) hands each row on as
+    it is bound and adds nothing.  An explicit request below the floor is
+    an error, not a silent inflation — the caller set it as a memory cap
+    and must raise it (or lower the sink buffer, the transfer chunk or
+    the chunk) knowingly."""
     in_flight = 2 + max(2, transfer_chunk)  # queue + assembling + mid-transfer
-    floor = transfer.hold_slabs + in_flight
+    run_ahead = (bind_chunk - 1) // batch_size
+    floor = transfer.hold_slabs + in_flight + run_ahead
     if arena_slabs is None:
         return floor
     if arena_slabs < floor:
         raise ValueError(
             f"arena_slabs={arena_slabs} is below the deadlock floor "
             f"{floor} (= transfer hold {transfer.hold_slabs} + {in_flight} "
-            "in-flight); raise arena_slabs or lower sink_buffer/transfer_chunk"
+            f"in-flight + {run_ahead} of the slot binder's run-ahead); raise "
+            "arena_slabs or lower sink_buffer/transfer_chunk/chunk"
         )
     return arena_slabs
 
@@ -335,7 +364,9 @@ def build_image_loader(
     arena = SlabArena(
         {"images": ((*hw, 3), np.uint8)},
         batch_size=batch_size,
-        num_slabs=_ring_size(arena_slabs, transfer, transfer_chunk),
+        num_slabs=_ring_size(
+            arena_slabs, transfer, transfer_chunk, batch_size=batch_size, bind_chunk=chunk
+        ),
         alloc=pinned_alloc if transfer.device.type == "cuda" else numpy_alloc,
     )
 

@@ -6,7 +6,8 @@ Switch load-balance aux loss, then per sequence a stable sort of the
 and the rest dropped.  All bulk data movement is batched gathers along
 the sequence dim: dispatch into an (B, E, cap, D) buffer, the experts'
 SwiGLU as batched products over E, and combine by one gather back to
-token order.  The only scatter is a small integer slot -> token map of
+token order and a gated sum over the k choices into one f32 (B, S, D)
+accumulator.  The only scatter is a small integer slot -> token map of
 (B, E*cap + 1), whose last column is the sentinel that dropped pairs land
 on.  DeepSeek-style shared experts run as a dense FFN beside them.
 
@@ -107,15 +108,21 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor,
     h = silu(torch.einsum("becd,edf->becf", buf, p["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, p["w_up"])
     y_buf = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(b, e * cap, d)
+    del x_pad, buf, h  # without autograd they go here, before the combine's gathers
 
     # -- combine: one batched gather straight to token order; a dropped
-    # pair reads slot 0 and takes gate 0 (the reference's zero row) -----------
+    # pair reads slot 0 and takes gate 0 (the reference's zero row).  The k
+    # gated outputs are summed into one f32 (B,S,D) accumulator, choice by
+    # choice: the reference's f32 sum, without its two f32 (B,S,k,D)
+    # temporaries (at DeepSeek-V3's 32k prompt, 7.5 GB each a row) ---------
     inv_order = torch.argsort(order, dim=-1)
     keep_tok = keep.gather(1, inv_order)  # (B,N), token order
     slot_tok = torch.where(keep, slot, 0).gather(1, inv_order)
-    y_tok = y_buf.gather(1, _rows(slot_tok, d))  # (B,N,D)
+    y_tok = y_buf.gather(1, _rows(slot_tok, d)).reshape(b, s, k, d)
     gate = torch.where(keep_tok.reshape(b, s, k), gate, 0)
-    y = (y_tok.reshape(b, s, k, d).float() * gate[..., None]).sum(dim=2)
+    y = y_tok[:, :, 0].float() * gate[..., 0, None]
+    for j in range(1, k):
+        y.add_(y_tok[:, :, j].float() * gate[..., j, None])
 
     if m.n_shared_experts:
         y = y + apply_ffn(cfg, p["shared"], x).float()

@@ -3,9 +3,11 @@
 The same seeded inputs (numpy, then bit-identical tensors on both sides)
 go through ``repro.models.moe.apply_moe`` and ``repro_torch.models.moe``:
 granite-smoke (4 experts, top 2), jamba-smoke (4 experts, top 2, d_expert
-128), granite-smoke with 2 shared experts, and granite-smoke at capacity
+128), granite-smoke with 2 shared experts, granite-smoke at capacity
 factor 0.5, where every sequence overflows some expert and the reference
-drops pairs.  Routes (each token's top-k experts, in order), y and the aux
+drops pairs, deepseek-smoke (8 experts, top 2, a shared expert) and
+granite-smoke at top 8 of 16 experts, DeepSeek-V3's k (the combine sums
+the k gated outputs one choice at a time).  Routes (each token's top-k experts, in order), y and the aux
 loss are compared, and the gradients of y and aux against ``jax.grad``.
 
 Bars.  f32: y within 2e-5 absolute, aux within 1e-6 of its value (a few f32
@@ -41,6 +43,8 @@ VARIANTS = {
     "jamba": ("jamba-1.5-large-398b", {}),
     "shared": ("granite-moe-1b-a400m", {"n_shared_experts": 2}),
     "overflow": ("granite-moe-1b-a400m", {"capacity_factor": 0.5}),
+    "deepseek": ("deepseek-v3-671b", {}),
+    "top8": ("granite-moe-1b-a400m", {"n_experts": 16, "experts_per_token": 8}),
 }
 
 
@@ -206,9 +210,19 @@ def test_gradients_match_jax_grad(reference_stack):  # noqa: F811
     """f32: d(sum(y * dy) + aux) by x and every parameter, shared experts and
     drops included, within 1e-4 of each gradient's largest |value|; and the
     aux loss's own gradient by the router."""
+    _gradients_match_jax_grad(reference_stack, "shared")
+
+
+def test_gradients_match_jax_grad_at_top_8(reference_stack):  # noqa: F811
+    """The same at top 8 of 16 experts: the gradient flows into each of the
+    k choices through the combine's running sum."""
+    _gradients_match_jax_grad(reference_stack, "top8")
+
+
+def _gradients_match_jax_grad(reference_stack, variant):  # noqa: F811
     from repro.models import moe as ref_moe
 
-    ref_cfg, cfg = _configs(reference_stack, "shared", "float32")
+    ref_cfg, cfg = _configs(reference_stack, variant, "float32")
     ref_cfg = dataclasses.replace(ref_cfg, moe=dataclasses.replace(ref_cfg.moe, capacity_factor=0.75))
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.75))
     x_np, p_np = _inputs(cfg, "float32", seed=2)
@@ -233,7 +247,7 @@ def test_gradients_match_jax_grad(reference_stack):  # noqa: F811
     (aux_grad,) = torch.autograd.grad(moe.apply_moe(cfg, tp, tx)[1], [tp["router"]])
 
     want = {"x": want_gx, **{k: v for k, v in want_gp.items() if k != "shared"},
-            **{f"shared.{k}": v for k, v in want_gp["shared"].items()}, "aux_router": want_aux_grad}
+            **{f"shared.{k}": v for k, v in want_gp.get("shared", {}).items()}, "aux_router": want_aux_grad}
     got = {**grads, "aux_router": aux_grad}
     assert got.keys() == want.keys()
     for k in want:

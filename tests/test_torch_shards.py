@@ -313,20 +313,40 @@ def test_health_monitor_raises_on_a_stuck_source_instead_of_hanging(corpus, tmp_
     assert mon.applied_actions() == ["disable_verify"]
 
 
-def test_fault_injected_reads_become_holes_and_batches_stay_dense(corpus):
-    _, v1, _ = corpus
+def _fault_injected_run(v1, batch: int) -> None:
+    """The loader over ``v1`` with 20% of reads failed, drained on a thread
+    within 30 s: a loader that blocks is stopped and fails the test."""
+    import threading
+
     ds = ShardDataset(v1)
     chaos = FaultInjectingStage(ds.read_bytes, seed=7, error_rate=0.2)
     ds.read_bytes = chaos
-    pipe = build_image_loader(ds, batch_size=BATCH, hw=HW, num_threads=4, device="cpu",
+    pipe = build_image_loader(ds, batch_size=batch, hw=HW, num_threads=4, device="cpu",
                               sampler=CheckpointableSampler(len(ds), batch_size=1, shuffle=False))
-    batches = _drain(pipe)
+    batches = []
+    reader = threading.Thread(target=lambda: batches.extend(_drain(pipe)), daemon=True)
+    reader.start()
+    reader.join(timeout=30)
+    if reader.is_alive():
+        pipe.stop()  # closes the arena, which wakes a blocked slot wait
+        ds.close()
+        pytest.fail("the loader blocked")
     failed = {s.name: s for s in pipe.stats()}["read"].num_failed
     ds.close()
     errors = chaos.stats()["injected_errors"]
     assert errors == 6 and failed == errors  # the seed's draws fail reads 7, 16, 20, 24, 27 and 32
-    assert len(batches) == (N - errors) // BATCH
-    assert all(b.shape == (BATCH, *HW, 3) for b in batches)
+    assert len(batches) == (N - errors) // batch
+    assert all(b.shape == (batch, *HW, 3) for b in batches)
+
+
+def test_fault_injected_reads_become_holes_and_batches_stay_dense(corpus):
+    _fault_injected_run(corpus[1], BATCH)
+
+
+def test_fault_injected_reads_at_batch_4_end_with_dense_batches(corpus):
+    """At a batch of 4 a chunk of 16 binds four slabs before it hands a row
+    on; the ring counts them (ROADMAP F-ref-5), so the run ends."""
+    _fault_injected_run(corpus[1], 4)
 
 
 def test_metrics_exporter_serves_the_stage_and_shard_cache_families(corpus, tmp_path):
