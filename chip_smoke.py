@@ -91,7 +91,14 @@ and a copy of the same bytes), then runs
     against the prefill of one token more, and Granite's so at the capacity
     that drops no pair, in bf16 and f32; Mamba2-780m at ``long_500k``
     (524,288 tokens, then 16 decode steps); the state after 524,288 tokens
-    against a prefill in another chunk and 64 decode steps;
+    against a prefill of 64 tokens fewer and 64 decode steps; Jamba-1.5-Large
+    in 3 layers at ``long_500k`` (a prefill of 524,272 tokens into the
+    524,288-slot cache, then 16 decode steps) and its decode step there
+    against the prefill of one token more; every prompt past 32,768 tokens
+    prefilled in token windows (``Model.prefill``'s ``window``), K3 at a
+    window's queries against 524,288 keys and K4 from an initial state held
+    to their plain versions, and the windowed prefill against the whole one
+    at 32,768 tokens;
   - one training step of Qwen3-0.6B, Mamba2-780m, Granite-MoE-1B-A400M,
     DeepSeek-V3, MusicGen-medium, InternVL2-2B, OLMo-1B and Yi-6B at full
     width, cut to 2 layers (DeepSeek to 1, its MTP block beside it), up to
@@ -241,9 +248,13 @@ CHECK_SEQ_DENSE = 256  # examples phase: Yi-6B's and OLMo-1B's model_check promp
 # 0.67 GB, three expert intermediates of 0.34 GB, their outputs 0.67 GB, the token-order gather 0.54 GB, two
 # f32 copies of 262,144 pairs 1.07 GB each): 4 rows.  MusicGen-medium: 2.8 GB; its 48 MHA layers of 1,536
 # hold a 9.66 GB cache a row: 2 rows.  InternVL2-2B: 3.8 GB; a 3.22 GB cache and 1.6 GB of FFN intermediates
-# a row: 4 rows, so its K3 shape is Qwen3-0.6B's (K3_SHAPE_OF).  Mamba2-780m: 1.6 GB; a 75 MB state and
-# about 2 GB of transients a row in a layer: 8 rows (long_500k's row of 524,288 peaked at 45.9 GB)
+# a row: 4 rows, so its K3 shape is Qwen3-0.6B's (LAUNCH_KEYS).  Mamba2-780m: 1.6 GB; a 75 MB state and
+# about 2 GB of transients a row in a layer: 8 rows (long_500k's row of 524,288 peaked at 45.9 GB).
+# Jamba-1.5-large at long_500k, JAMBA_LONG_LAYERS layers, one row: prefilled in token windows of 32,768
+# (Model.prefill), it holds 25.9 GB of weights, the bf16 residual stream of 524,288 x 8,192 (8.6 GB), the
+# 2.15 GB cache and one window's intermediates (about 19 GB in the MoE layer, 8 in an SSD layer): 55-62 GB
 LONG_ROWS = {("qwen3-0.6b", "prefill_32k"): 4, ("qwen3-0.6b", "decode_32k"): 8, ("mamba2-780m", "long_500k"): 1,
+             ("jamba-1.5-large-398b", "long_500k"): 1,
              ("deepseek-v3-671b", "prefill_32k"): 2, ("deepseek-v3-671b", "decode_32k"): 2,
              ("yi-6b", "prefill_32k"): 2, ("olmo-1b", "prefill_32k"): 2,
              ("jamba-1.5-large-398b", "prefill_32k"): 2, ("jamba-1.5-large-398b", "decode_32k"): 2,
@@ -278,16 +289,45 @@ LONG_K3 = {"qwen3-0.6b": ("k3_prefill_32k", "prefill_32k", None, None),
            "qwen1.5-110b": ("k3_h64_kv8_prefill_32k", "h64_kv8_prefill_32k", 1, None),
            "granite-moe-1b-a400m": ("k3_granite_prefill_32k", "granite_prefill_32k", 1, None),
            "musicgen-medium": ("k3_musicgen_prefill_32k", "musicgen_prefill_32k", 1, None)}
-# Jamba's attention is Qwen1.5-110B's K3 shape: 64 heads of 128 over 8 kv heads, 2 rows at prefill_32k;
-# InternVL2-2B's is Qwen3-0.6B's: 16 heads of 128 over 8 kv heads, 4 rows
-K3_SHAPE_OF = {"jamba-1.5-large-398b": "qwen1.5-110b", "internvl2-2b": "qwen3-0.6b"}
-# long_k4: (arch, the shape whose scan it is) -> (case, the kernels line's key); a decode_32k prefill's
-# launches count under its prefill_32k entry
+# long_k4: (arch, the shape whose scan it is) -> (case, the kernels line's key); Mamba2's long_500k case is
+# the whole 524,288-token scan, which its prefill in token windows no longer launches (LONG_K4_H0's is)
 LONG_K4 = {("mamba2-780m", "long_500k"): ("k4_long_500k", "long_500k"),
            ("jamba-1.5-large-398b", "prefill_32k"): ("k4_jamba_prefill_32k", "jamba_prefill_32k"),
            ("mamba2-780m", "prefill_32k"): ("k4_mamba2_prefill_32k", "mamba2_prefill_32k")}
+# K3 at the last two token windows of Jamba's long_500k prefill (long_k3_window): case, the kernels line's key
+LONG_K3_WINDOW = ("k3_jamba_long_500k", "jamba_long_500k_windows")
+LONG_K3_WINDOW_ROWS = 1024  # its plain version runs on a window's last rows of one kv head's q heads
+# K4 from an initial state h0 at a window of a long_500k prefill (long_k4_h0): arch -> (case, the kernels
+# line's key); Mamba2's 48 heads split their chunks in segments, Jamba's 256 do not
+LONG_K4_H0 = {"jamba-1.5-large-398b": ("k4_h0_jamba_window", "jamba_window_h0"),
+              "mamba2-780m": ("k4_h0_mamba2_window", "mamba2_window_h0")}
+# long_run: the kernels line's entries under which an (arch, shape) path counts its launches, the entries of
+# the long_k3/long_k4/long_k3_window/long_k4_h0 cases at its kernels' shapes.  A decode_32k prefill counts
+# under its prefill_32k case.  Jamba's attention is Qwen1.5-110B's K3 shape (64 heads of 128 over 8 kv heads, 2
+# rows at prefill_32k), InternVL2-2B's Qwen3-0.6B's (16 heads of 128 over 8 kv heads, 4 rows).  A long_500k
+# prefill's windows count under the window cases, which time windows of the shapes that prefill runs
+_KEYS_32K = {"qwen3-0.6b": {"flash_attention": "prefill_32k"},
+             "deepseek-v3-671b": {"flash_attention": "mla_prefill_32k"},
+             "yi-6b": {"flash_attention": "yi_prefill_32k"},
+             "olmo-1b": {"flash_attention": "olmo_prefill_32k"},
+             "qwen1.5-110b": {"flash_attention": "h64_kv8_prefill_32k"},
+             "granite-moe-1b-a400m": {"flash_attention": "granite_prefill_32k"},
+             "musicgen-medium": {"flash_attention": "musicgen_prefill_32k"},
+             "internvl2-2b": {"flash_attention": "prefill_32k"},
+             "jamba-1.5-large-398b": {"flash_attention": "h64_kv8_prefill_32k", "ssd_scan": "jamba_prefill_32k"},
+             "mamba2-780m": {"ssd_scan": "mamba2_prefill_32k"}}
+LAUNCH_KEYS = {**{(arch, shape): keys for arch, keys in _KEYS_32K.items() for shape in ("prefill_32k", "decode_32k")},
+               ("jamba-1.5-large-398b", "long_500k"): {"flash_attention": LONG_K3_WINDOW[1],
+                                                       "ssd_scan": LONG_K4_H0["jamba-1.5-large-398b"][1]},
+               ("mamba2-780m", "long_500k"): {"ssd_scan": LONG_K4_H0["mamba2-780m"][1]}}
+# the windowed prefill against the whole one (long_window_check), Jamba in JAMBA_LONG_LAYERS layers, one row:
+# (tokens, window) by dtype; the f32 witness at the length its 51.8 GB of weights leave room for
+WINDOW_CHECK = {"bfloat16": (32_768, 8_192), "float32": (4_096, 1_024)}
 LONG_TAIL = 64  # decode_32k decodes the cache's last 64 slots; the checks decode 64 tokens after a prefill
 LONG_500K_STEPS = 16  # long_500k's decode steps from the prefill's state
+# Jamba at long_500k: the prompt leaves the cache's last LONG_500K_ROOM slots to the decode steps
+LONG_500K_ROOM = LONG_500K_STEPS
+LONG_500K_PROMPT = 524_288 - LONG_500K_ROOM  # and its decode check's prompt
 LONG_CHECK_LAYERS = 4  # the decode-against-prefill and state checks: full width, 4 layers
 LONG_TIMED_RUNS = 5  # K3/K4 at the long shapes: each launch is 35-215 ms
 # Yi-6B and OLMo-1B have no qk_norm: on the seed-0 weights an H100 read Yi f32 1.52e-4 / 3.90e-4 and
@@ -1333,24 +1373,32 @@ def position_pairs(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> int:
 
 LIBRARY_ATTENTION = ("torch.nn.functional.scaled_dot_product_attention(is_causal=True) on its fused backends, "
                      "enable_gqa where k has fewer heads")
+# where q has fewer rows than k: the causal mask aligned at the bottom right, which SDPA dispatches to flash
+LIBRARY_ATTENTION_RIGHT = ("torch.nn.functional.scaled_dot_product_attention(attn_mask=torch.nn.attention.bias."
+                           "causal_lower_right(sq, skv)), enable_gqa where k has fewer heads")
 
 
 def library_attention(q, k, v, causal: bool):
     """One PyTorch call for the same function (the yardstick; never on the
-    port's path).  SDPA's causal mask is top-left aligned, so it is timed
-    only where sq == skv.  SDPA may take only its fused backends (flash,
-    memory-efficient, cuDNN): a shape they refuse raises rather than fall
-    back to the math backend, whose scores at 32k keys would not fit the
-    card."""
+    port's path).  Where q has fewer rows than k (a window of a prefill in
+    token windows) the causal mask is ``causal_lower_right``'s, query i at
+    key i + skv - sq, as K3 aligns it; SDPA takes that mask to flash
+    attention without building it.  SDPA may take only its fused backends
+    (flash, memory-efficient, cuDNN): a shape they refuse raises rather
+    than fall back to the math backend, whose scores at 32k keys would not
+    fit the card."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
     gqa = q.shape[1] != k.shape[1]
+    sq, skv = q.shape[2], k.shape[2]
+    mask = {"attn_mask": causal_lower_right(sq, skv)} if causal and sq < skv else {"is_causal": causal}
 
     def call():
         with sdpa_kernel(backends):
-            return sdpa(q, k, v, is_causal=causal, enable_gqa=gqa)
+            return sdpa(q, k, v, enable_gqa=gqa, **mask)
     return call
 
 
@@ -2012,12 +2060,25 @@ def trace_step(dev: torch.device, fn, *kernel_symbols: str) -> dict:
 PREFILL_KERNELS = {"flash_attention": (("attn", "mla"), "fa_wgmma_bf16"), "ssd_scan": (("ssd",), "ssd_wgmma_bf16")}
 
 
-def prefill_launches(cfg) -> dict:
+def prefill_launches(cfg, tokens: int = 0) -> dict:
     """The launches of each of K3 and K4 that one prefill of ``cfg`` makes:
-    K3 once an attention (or MLA) layer, K4 once an SSD layer; a decode
-    step launches neither."""
+    K3 once an attention (or MLA) layer, K4 once an SSD layer, each once a
+    token window of a prompt of ``tokens`` (``prefill_windows``: one up to
+    PREFILL_WINDOW); a decode step launches neither."""
+    from repro_torch.models.model import prefill_windows
+
     kinds = [kind for kind, _ in cfg.layer_plan()]
-    return {name: sum(kind in layer_kinds for kind in kinds) for name, (layer_kinds, _) in PREFILL_KERNELS.items()}
+    windows = len(prefill_windows(cfg, tokens)) if tokens else 1
+    return {name: windows * sum(kind in layer_kinds for kind in kinds)
+            for name, (layer_kinds, _) in PREFILL_KERNELS.items()}
+
+
+def window_chunks(cfg, tokens: int) -> list:
+    """The scan chunks of a prefill of ``tokens`` tokens, one a token window."""
+    from repro_torch.models.model import prefill_windows
+    from repro_torch.models.ssm import scan_chunk
+
+    return sorted({scan_chunk(cfg, t1 - t0) for t0, t1 in prefill_windows(cfg, tokens)})
 
 
 def path_kernel_symbols(cfg) -> list[str]:
@@ -2236,7 +2297,7 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     192 as ``mla_prefill`` pads it; Yi-6B's q (2,32,32768,128) against k/v
     (2,4,32768,128); OLMo-1B's (2,16,32768,128), MHA; Qwen1.5-110B's q
     (2,64,32768,128) against k/v (2,8,32768,128), which is Jamba-1.5-large's
-    too (``K3_SHAPE_OF``).  Held to FA_TOL and FA_ROW_REL of
+    too (``LAUNCH_KEYS``).  Held to FA_TOL and FA_ROW_REL of
     its plain version (on the rows and q heads ``LONG_K3`` names, with
     their kv heads), timed beside SDPA and its bound.  The bound counts the
     real work, 2 * (qk dims + v dims) operations a causal pair a head, so
@@ -2262,7 +2323,8 @@ def long_k3(dev: torch.device, summary: dict, card: str, arch: str) -> None:
     group = h // hkv
     want = fa.flash_attention_plain(q[:rows, :heads], k[:rows, :heads // group], v[:rows, :heads // group], **kw)
     sync(dev)
-    archs = [cfg.name, *(get_config(a).name for a, of in K3_SHAPE_OF.items() if of == arch)]
+    archs = [get_config(a).name for (a, shape), keys in LAUNCH_KEYS.items()
+             if shape == "prefill_32k" and keys.get("flash_attention") == key]
     row = {"phase": "long_shapes", "case": case, "kernel": "flash_attention", "archs": archs, "q": [b, h, s, hd],
            "kv": [b, hkv, s, hd], "v_dims": vd, "dtype": "torch.bfloat16", "block_k": 128,
            "route": fa.kernel_route(torch.bfloat16, hd, 128),
@@ -2389,27 +2451,34 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
     4)).  Each
     prefill must launch K3 once an attention (or MLA) layer and K4 once an
     SSD layer (``prefill_launches``), each decode step neither; every logit
-    must be finite.  Readings: wall and host enqueue
-    ms of each prefill and step, the card's busy ms of one more prefill or
-    decode step under the profiler (``trace``) with each kernel's share,
-    the peak of ``max_memory_allocated`` beside the bytes ``abstract_params``
-    and ``cache_spec`` give, and the greedy ids."""
+    must be finite.  A prompt past PREFILL_WINDOW tokens runs in token
+    windows, each launching both kernels so.  Readings: wall and host enqueue
+    ms of each prefill and step, the card's busy ms of one more prefill
+    (``trace`` "prefill", with each kernel's share) and of one more decode
+    step under the profiler, the peak of ``max_memory_allocated`` beside
+    the bytes ``abstract_params`` and ``cache_spec`` give, and the greedy
+    ids.  With ``prefills`` 0 and ``trace`` "prefill" the one prefill is
+    the traced one, its wall and enqueue the readings (``prefill_timed``:
+    "traced"): Jamba's ``long_500k`` prefill is card-bound (99.9% busy),
+    and a second 20 s prefill would take the script's time."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
+    from repro_torch.models.model import prefill_windows
 
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    per_prefill, symbols = prefill_launches(cfg), path_kernel_symbols(cfg)
     rows = LONG_ROWS[(arch, name)]
     shape, prefill, decode = long_steps(cfg, name, rows, dev)
     prompt = shape.seq_len - room
+    per_prefill, symbols = prefill_launches(cfg, prompt), path_kernel_symbols(cfg)
     t0 = time.monotonic()
     model = Model(cfg)
     params = model.init(seed=0, device=dev)
     gen = torch.Generator().manual_seed(12)
-    times: dict[str, list[float]] = {"prefill": [], "prefill_enqueue": [], "decode": [], "decode_enqueue": []}
-    launches, finite, ids = [], [], {"prefill": [], "decode": []}
+    times: dict[str, list[float]] = {key: [] for key in (
+        "prefill", "prefill_enqueue", "traced", "traced_enqueue", "decode", "decode_enqueue")}
+    launches, finite, ids = [], [], {"prefill": [], "traced": [], "decode": []}
 
     def run(key, fn, *args, **kwargs):
         sync(dev)
@@ -2423,18 +2492,21 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
         finite.append(bool(torch.isfinite(logits).all()))
         return logits, cache
 
+    def one_prefill(key):
+        held.clear()  # the last prefill's cache goes before the next one is made
+        held["logits"], held["cache"] = run(key, prefill, params, batch, seq_cap=shape.seq_len)
+        ids[key].append(held["logits"].argmax(dim=-1).tolist())
+
     release_card()
     torch.cuda.reset_peak_memory_stats(dev)
     held: dict = {}
     for _ in range(prefills):
         batch = prompt_batch(cfg, rows, prompt, gen)
-        held.clear()  # the last prefill's cache goes before the next one is made
-        held["logits"], held["cache"] = run("prefill", prefill, params, batch, seq_cap=shape.seq_len)
-        ids["prefill"].append(held["logits"].argmax(dim=-1).tolist())
-    if trace == "prefill":
-        held.clear()
-        prefill_trace = trace_step(dev, lambda: held.update(zip(
-            ("logits", "cache"), prefill(params, batch, seq_cap=shape.seq_len))), *symbols)
+        one_prefill("prefill")
+    if trace == "prefill":  # one more prefill under the profiler, the timed one where it is the only one
+        if not prefills:
+            batch = prompt_batch(cfg, rows, prompt, gen)
+        prefill_trace = trace_step(dev, lambda: one_prefill("traced" if prefills else "prefill"), *symbols)
     cur = held["logits"].argmax(dim=-1)[:, None]
     for t in range(steps):
         logits, held["cache"] = run("decode", decode, params, held["cache"], cur, prompt + t)
@@ -2444,7 +2516,9 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
     row = {"phase": "long_shapes", "case": name, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
            "params": model.param_count(), "dtype": cfg.dtype, "shape": dataclasses.asdict(shape),
            "rows": rows, "prompt": prompt, "decode_steps": steps, "kernels": [k for k, n in per_prefill.items() if n],
+           "windows": len(prefill_windows(cfg, prompt)), "scan_chunks": window_chunks(cfg, prompt) if cfg.ssd else None,
            "launches_per_prefill": [n for key, n in launches if key == "prefill"],
+           "prefill_timed": "untraced" if prefills else "traced",
            "decode_launches": {k: sum(n[k] for key, n in launches if key == "decode") for k in per_prefill},
            "reading": "the timings and bytes are readings, not gates",
            "prefill_ms": times["prefill"], "prefill_enqueue_ms": times["prefill_enqueue"]}
@@ -2456,17 +2530,18 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
         row["prefill_trace"] = prefill_trace
         row["kernel_share"] = {symbol: k["share"] for symbol, k in prefill_trace["by_kernel"].items()}
         row["card_busy_share"] = prefill_trace["device_busy_ms"] / min(times["prefill"])
-    else:
+    if steps:  # one more step under the profiler
         row["decode_trace"] = trace_step(dev, lambda: decode(params, held["cache"], cur, prompt + steps - 1),
                                          *symbols)
-        row["card_busy_share"] = row["decode_trace"]["device_busy_ms"] / row["decode_ms_per_token"]
+        share = row["decode_trace"]["device_busy_ms"] / row["decode_ms_per_token"]
+        row["card_busy_share" if trace == "decode" else "decode_busy_share"] = share
     row.update(max_memory_allocated=peak, **spec_bytes(model, rows, shape.seq_len),
                greedy_ids={"prefill": ids["prefill"], "decode_first_row": [i[0] for i in ids["decode"]]},
                all_logits_finite=all(finite), seconds=time.monotonic() - t0)
     emit(row)
-    if row["launches_per_prefill"] != [per_prefill] * prefills:
+    if row["launches_per_prefill"] != [per_prefill] * max(prefills, 1):
         raise AssertionError(f"long_shapes {cfg.name} {name}: {row['launches_per_prefill']} launches in "
-                             f"{prefills} prefills, not {per_prefill} each")
+                             f"{max(prefills, 1)} prefills, not {per_prefill} each")
     if any(row["decode_launches"].values()):
         raise AssertionError(f"long_shapes {cfg.name} {name}: the decode steps launched {row['decode_launches']}")
     if trace == "prefill":
@@ -2477,13 +2552,8 @@ def long_run(dev: torch.device, summary: dict, arch: str, name: str, room: int, 
         raise AssertionError(f"long_shapes {cfg.name} {name}: non-finite logits")
     total = {k: sum(n[k] for key, n in launches if key == "prefill") for k in per_prefill}
     count_launches(summary, f"long_shapes {cfg.name} {name}", total)
-    # beside the kernels' times at this shape
-    k3_arch = K3_SHAPE_OF.get(arch, arch)
-    if k3_arch in LONG_K3:
-        summary["flash_attention"][LONG_K3[k3_arch][1]]["launches"] += total["flash_attention"]
-    k4_shape = "prefill_32k" if name == "decode_32k" else name
-    if (arch, k4_shape) in LONG_K4:
-        summary["ssd_scan"][LONG_K4[arch, k4_shape][1]]["launches"] += total["ssd_scan"]
+    for kernel, key in LAUNCH_KEYS[arch, name].items():  # beside the kernel's times at this path's shapes
+        summary[kernel][key]["launches"] += total[kernel]
 
 
 def cache_errors(got: list, want: list, names: tuple) -> dict:
@@ -2550,10 +2620,15 @@ def long_decode_check(dev: torch.device, arch: str, layers: int, conditioned: bo
         raise AssertionError(f"long_shapes decode_32k {cfg.name}: the decode step is {err:.3g} from the prefill of S+1")
 
 
-def long_moe_decode_check(dev: torch.device, arch: str, dtype: str) -> None:
+def long_moe_decode_check(dev: torch.device, arch: str, dtype: str, shape_name: str = "decode_32k",
+                          prompt: int | None = None) -> None:
     """A MoE config at full width in ``dtype``, at capacity factor experts /
     top-k, where ``capacity_per_seq`` reaches the prompt's length and no
-    pair is dropped, through ``decode_32k``'s steps, as
+    pair is dropped, through ``shape_name``'s steps (``decode_32k``, or
+    ``long_500k`` for Jamba with a ``prompt`` of 524,272 tokens, prefilled
+    in token windows of 32,768 with the prompt's last 240 in a window of
+    their own, the longer prefill's last 241: its windows carry the state
+    and the cache as the shorter one's do), as
     ``tests/test_torch_hybrid_long.py`` and
     ``tests/test_torch_long_attention.py`` run the smoke configs on the
     CPU: the greedy decode step after a prefill against the prefill of
@@ -2585,7 +2660,7 @@ def long_moe_decode_check(dev: torch.device, arch: str, dtype: str) -> None:
     import route_check
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    from repro_torch.models.ssm import scan_chunk
+    from repro_torch.models.model import prefill_windows
 
     hybrid = arch == "jamba-1.5-large-398b"
     layers, rows = (JAMBA_LONG_LAYERS, 1) if hybrid else (LONG_CHECK_LAYERS, GRANITE_CHECK_ROWS)
@@ -2597,8 +2672,8 @@ def long_moe_decode_check(dev: torch.device, arch: str, dtype: str) -> None:
     bars = dict.fromkeys(("logits", *names), TRAIN_F32_REL if dtype == "float32" else MODEL_REL)
     if dtype == "bfloat16" and hybrid:
         bars["ssm"] = HYBRID_STATE_REL
-    shape, prefill, decode = long_steps(cfg, "decode_32k", rows, dev)
-    s = JAMBA_CHECK_PROMPT[dtype] if hybrid else shape.seq_len - LONG_TAIL
+    shape, prefill, decode = long_steps(cfg, shape_name, rows, dev)
+    s = prompt or (JAMBA_CHECK_PROMPT[dtype] if hybrid else shape.seq_len - LONG_TAIL)
     t0 = time.monotonic()
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -2631,8 +2706,9 @@ def long_moe_decode_check(dev: torch.device, arch: str, dtype: str) -> None:
     vocab = cfg.vocab_size
     errs = {"logits": _rel_err(step_logits[..., :vocab], whole[..., :vocab].float().cpu(), "decode logits"),
             **cache_errors(cache, whole_cache, names)}
-    per_prefill = prefill_launches(cfg)
-    case = f"decode_against_prefill_32k_{'hybrid' if hybrid else cfg.name}_{dtype}"
+    per_prefill = prefill_launches(cfg, s)
+    case = (f"decode_against_prefill_{'32k' if shape_name == 'decode_32k' else shape_name}_"
+            f"{'hybrid' if hybrid else cfg.name}_{dtype}")
     row = {"phase": "long_shapes", "case": case, "arch": cfg.name, "dtype": dtype, "layers": cfg.num_layers,
            "kinds": [f"{kind}{' + moe' if is_moe else ''}" for kind, is_moe in cfg.layer_plan()],
            "capacity_factor": cfg.moe.capacity_factor, "weights": conditioned_weights(cfg), "rows": rows,
@@ -2640,10 +2716,13 @@ def long_moe_decode_check(dev: torch.device, arch: str, dtype: str) -> None:
            "same_greedy_ids": bool((step_logits.argmax(-1) == whole.argmax(-1)).all()),
            "bar": f"logits[..., :{vocab}] and each layer's {', '.join(names)}: max |decode - prefill of S+1| <= "
                   f"bar * max |prefill's|", "bars": bars,
-           **({"chunks": {"prefill": scan_chunk(cfg, s), "longer_prefill": scan_chunk(cfg, s + 1)}} if hybrid else {}),
+           **({"chunks": {"prefill": window_chunks(cfg, s), "longer_prefill": window_chunks(cfg, s + 1)}}
+              if hybrid else {}),
+           "windows": {"prefill": len(prefill_windows(cfg, s)), "longer_prefill": len(prefill_windows(cfg, s + 1))},
            "seconds": time.monotonic() - t0}
     emit(row)
-    if launches != {"prefill": per_prefill, "step": dict.fromkeys(per_prefill, 0), "longer_prefill": per_prefill}:
+    if launches != {"prefill": per_prefill, "step": dict.fromkeys(per_prefill, 0),
+                    "longer_prefill": prefill_launches(cfg, s + 1)}:
         raise AssertionError(f"long_shapes {cfg.name} decode check: launches {launches}")
     if errs.keys() != bars.keys() or any(errs[k] > bars[k] for k in bars):
         raise AssertionError(f"long_shapes {dtype} {cfg.name} decode check over the bar: {errs}")
@@ -2654,24 +2733,29 @@ def long_moe_decode_check(dev: torch.device, arch: str, dtype: str) -> None:
 
 def long_state_check(dev: torch.device, dtype: str) -> None:
     """Mamba2-780m at full width, LONG_CHECK_LAYERS layers, in ``dtype``,
-    through ``long_500k``'s steps: a prefill of 524,288 tokens (chunk 256)
-    against a prefill of the first 524,224 (chunk 64, ``scan_chunk``'s pick
-    there) followed by 64 decode steps on the rest: the last logits over the
-    real vocabulary (the head's padding columns hold -2**30 in both) and
-    every layer's state ``ssm`` within MODEL_REL (bf16) or TRAIN_F32_REL
-    (f32, TF32 off) of their largest value; the conv window's difference is
-    printed beside them.  The f32 run is the witness that the bf16 gap is
-    rounding and not a fault of either chunk's path or of the decode."""
+    through ``long_500k``'s steps: a prefill of 524,288 tokens (16 token
+    windows of 32,768, chunk 256, each scan starting from the state the
+    window before left) against a prefill of the first 524,224 (17 windows:
+    the last 192 tokens in one of their own, scanned in a chunk of 192)
+    followed by 64 decode steps on the rest: the last logits over the real
+    vocabulary (the head's padding columns hold -2**30 in both) and every
+    layer's state ``ssm`` within MODEL_REL (bf16) or TRAIN_F32_REL (f32,
+    TF32 off) of their largest value; the conv window's difference is
+    printed beside them.  So the windows' carry of the state and the conv
+    window is held to the recurrent decode.  The f32 run is the witness that
+    the bf16 gap is rounding and not a fault of either prefill's path or of
+    the decode."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan
     from repro_torch.models import Model
-    from repro_torch.models.ssm import scan_chunk
+    from repro_torch.models.model import prefill_windows
 
     cfg = dataclasses.replace(get_config("mamba2-780m"), num_layers=LONG_CHECK_LAYERS, dtype=dtype)
     bar = TRAIN_F32_REL if dtype == "float32" else MODEL_REL
     shape, prefill, decode = long_steps(cfg, "long_500k", 1, dev)
     l, part, vocab = shape.seq_len, shape.seq_len - LONG_TAIL, cfg.vocab_size
-    chunks = (scan_chunk(cfg, l), scan_chunk(cfg, part))
+    chunks = (window_chunks(cfg, l), window_chunks(cfg, part))
+    windows = (len(prefill_windows(cfg, l)), len(prefill_windows(cfg, part)))
     t0 = time.monotonic()
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -2690,14 +2774,242 @@ def long_state_check(dev: torch.device, dtype: str) -> None:
             **cache_errors(cache, want_cache, ("ssm", "conv"))}
     row = {"phase": "long_shapes", "case": f"state_over_long_500k_{dtype}", "arch": cfg.name, "dtype": dtype,
            "layers": cfg.num_layers, "tokens": l, "chunks": {"prefill": chunks[0], "prefill_then_decode": chunks[1]},
+           "windows": {"prefill": windows[0], "prefill_then_decode": windows[1]},
            "decode_steps": l - part, "k4_launches": launches, "max_rel_err": errs,
            "bar": f"logits[..., :{vocab}] and each layer's ssm: max |diff| <= {bar} * max |prefill's|; conv printed",
            "seconds": time.monotonic() - t0}
     emit(row)
-    if chunks[0] != cfg.ssd.chunk or chunks[1] == chunks[0] or launches != 2 * cfg.num_layers:
-        raise AssertionError(f"long_shapes state check: chunks {chunks}, {launches} K4 launches")
+    if (chunks[0] != [cfg.ssd.chunk] or chunks[1] == chunks[0] or windows[0] < 2
+            or launches != sum(windows) * cfg.num_layers):
+        raise AssertionError(f"long_shapes state check: chunks {chunks}, windows {windows}, {launches} K4 launches")
     if errs["logits"] > bar or errs["ssm"] > bar:
         raise AssertionError(f"long_shapes {dtype} state check over the bar: {errs}")
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    """The largest divisor of ``n`` that is at most ``cap``."""
+    return max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+
+
+def long_k3_window(dev: torch.device, summary: dict, card: str) -> None:
+    """K3 at the last two token windows of Jamba-1.5-large's ``long_500k``
+    prefill (``prefill_windows`` of LONG_500K_PROMPT tokens; Qwen1.5-110B's
+    heads: 64 of 128 over 8 kv heads), bf16, seeded on the card, through
+    ``attention._causal_flash`` as ``attn_prefill`` calls it: the last full
+    window, 32,512 queries against 524,032 keys (tile 128, no padding), and
+    the prompt's last 240 tokens against 524,272 keys, which
+    ``_causal_flash`` pads by 16 rows on q and on k/v to 256 against 524,288
+    (the path's one partial tile).  Each is held to FA_TOL and FA_ROW_REL of
+    its plain version on the unpadded q, k and v, on the window's last
+    LONG_K3_WINDOW_ROWS query rows (the tail's all 240) of the q heads of kv
+    head 0 (the rows keep their alignment; key tiles of the largest divisor
+    of the keys up to 32,768), and timed at the kernel's own (padded) shape
+    beside its bound (its causal pairs at 64 heads) and beside SDPA with the
+    causal mask at the bottom right (``library_attention``) on the unpadded
+    q, k and v.  The kernels line's entry holds both windows; the path's
+    every window counts its launch under it (``LAUNCH_KEYS``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import FLASH_PAD, _causal_flash
+    from repro_torch.models.model import prefill_windows
+
+    case, key = LONG_K3_WINDOW
+    cfg = get_config("jamba-1.5-large-398b")
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    group = h // hkv  # the q heads of kv head 0 are 0 .. group - 1
+    windows = prefill_windows(cfg, LONG_500K_PROMPT)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    entry = summary["flash_attention"]
+    entry[key] = {"windows": len(windows), "launches": 0}  # long_run adds the path's
+    for label, (t0, t1) in (("last_window", windows[-2]), ("tail_window", windows[-1])):
+        sq, skv = t1 - t0, t1
+        pad = -sq % FLASH_PAD
+        if (skv - sq) % FLASH_PAD:
+            raise AssertionError(f"{label}: {skv - sq} keys before the window, not a multiple of {FLASH_PAD}")
+        # head-major as the kernel takes them, zero rows after the real ones as _causal_flash pads them
+        qh, kt, vt = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                      for shape in ((1, h, sq + pad, hd), (1, hkv, skv + pad, hd), (1, hkv, skv + pad, hd)))
+        for t, n in ((qh, sq), (kt, skv), (vt, skv)):
+            t[:, :, n:] = 0
+        q = qh[:, :, :sq].unflatten(1, (hkv, group)).permute(0, 3, 1, 2, 4)  # (1, sq, K, G, hd)
+        k, v = kt[:, :, :skv].transpose(1, 2), vt[:, :, :skv].transpose(1, 2)  # (1, skv, K, hd)
+        got = _causal_flash(q, k, v)  # (1, sq, h, hd)
+        rows = min(LONG_K3_WINDOW_ROWS, sq)
+        want = fa.flash_attention_plain(qh[:, :group, sq - rows:sq], kt[:, :1, :skv], vt[:, :1, :skv], causal=True,
+                                        block_q=rows, block_k=largest_divisor(skv, 32_768))
+        sync(dev)
+        part = got[:, sq - rows:, :group].transpose(1, 2)
+        row = {"phase": "long_shapes", "case": f"{case}_{label}", "kernel": "flash_attention", "arch": cfg.name,
+               "window": [t0, t1], "q": [1, h, sq, hd], "kv": [1, hkv, skv, hd], "q_offset": skv - sq,
+               "padded_rows": pad, "kernel_q": list(qh.shape), "kernel_kv": list(kt.shape),
+               "dtype": "torch.bfloat16", "block_k": 128, "route": fa.kernel_route(torch.bfloat16, hd, 128),
+               "held_to_plain": f"the last {rows} query rows of q heads 0..{group - 1} (kv head 0), every element "
+                                f"there, through _causal_flash",
+               **within_tol(part, want), **row_rel(part, want)}
+        del want, part
+        if row["over_bar"] or row["over_row_bar"] or not torch.isfinite(got.float()).all():
+            emit(row)
+            raise AssertionError(f"flash_attention at long_500k's {label}: {row['over_bar']} elements over FA_TOL, "
+                                 f"{row['over_row_bar']} rows over FA_ROW_REL, or non-finite values")
+        del got, q, k, v
+        row["ms"] = time_ms(lambda: fa.flash_attention(qh, kt, vt, causal=True, block_q=128, block_k=128), flush,
+                            runs=2, warm=1)
+        lib = [t[:, :, :n].contiguous() for t, n in ((qh, sq), (kt, skv), (vt, skv))]
+        row["library_ms"] = time_ms(library_attention(*lib, True), flush, runs=2, warm=1)
+        row["library"] = LIBRARY_ATTENTION_RIGHT
+        nbytes = sum(t.numel() * t.element_size() for t in lib) + lib[0].numel() * lib[0].element_size()
+        del lib
+        row.update(bound(nbytes, 2 * 2 * hd * causal_pairs(sq, skv, True) * h, BF16_TC_OPS_PER_S, card))
+        row["over_bound"], row["over_library"] = row["ms"] / row["bound_ms"], row["ms"] / row["library_ms"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+        entry[key][label] = {name: row[name] for name in (
+            "window", "ms", "library_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err", "max_row_rel_err")}
+        emit(row)
+        del qh, kt, vt
+
+
+def long_k4_h0(dev: torch.device, summary: dict, card: str, arch: str) -> None:
+    """K4 from an initial state at a token window of ``arch``'s ``long_500k``
+    prefill (``LONG_K4_H0``), bf16, one row of PREFILL_WINDOW tokens, chunk
+    256, seeded on the card: Jamba-1.5-large's x (1,32768,256,64), 8 groups
+    of d_state 128, one segment a (row, head); Mamba2-780m's x
+    (1,32768,48,64), one group, whose 48 (row, head) pairs split their 128
+    chunks into segments, so h0 enters the carry's fold at segment 0 and
+    reaches the others through it.  ``ssd_inputs``' draws and h0 ~ N(0, 1)
+    f32: y and h_final within SSD_TOL and the scale-aware bars
+    (``ssd_rel``) of the plain version from the same h0, timed beside it
+    and its bound.  Mamba2's case also splits one scan in two halves of
+    16,384 tokens, the first's h_final the second's h0, on
+    ``ssd_inputs_long_memory``'s draws (heads that keep their state across
+    the halves), and holds both halves' y and the second's h_final to the
+    plain version's scan of the whole within SSD_CHUNK_REL and
+    SSD_STATE_REL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models.model import PREFILL_WINDOW
+
+    case, key = LONG_K4_H0[arch]
+    cfg = get_config(arch)
+    ssd, l, chunk = cfg.ssd, PREFILL_WINDOW, cfg.ssd.chunk
+    shape = (1, l, ssd.n_heads(cfg.d_model), ssd.head_dim, ssd.n_groups, ssd.d_state)
+    b, _, h, p, _, n = shape
+    gen = torch.Generator(device=dev).manual_seed(18)
+    args = ssd_inputs(gen, *shape, torch.bfloat16, dev)
+    h0 = torch.randn((b, h, p, n), generator=gen, device=dev)
+    y, h_final = ks.ssd_scan(*args, chunk=chunk, h0=h0)
+    want_y, want_h = ks.ssd_scan_plain(*args, chunk=chunk, h0=h0)
+    sync(dev)
+    on_y, on_h = within_tol(y, want_y, SSD_TOL), within_tol(h_final, want_h, SSD_TOL)
+    scale_aware = ssd_rel(y, want_y, h_final, want_h, chunk)
+    del want_y, want_h
+    row = {"phase": "long_shapes", "case": case, "kernel": "ssd_scan", "arch": cfg.name, "b_l_h_p_g_n": list(shape),
+           "chunk": chunk, "chunks": l // chunk, "dtype": "torch.bfloat16", "draw": "ssd_inputs, h0 ~ N(0, 1)",
+           "route": ks.kernel_route(torch.bfloat16, p, n), **k4_blocks(b, l, h, chunk, torch.bfloat16, dev),
+           "y": on_y, "h_final": on_h, "scale_aware": scale_aware, "held_to_plain": "every row and head, the same h0",
+           "max_abs_err": max(on_y["max_abs_err"], on_h["max_abs_err"])}
+    failed = on_y["over_bar"] or on_h["over_bar"] or scale_aware["over_chunk_bar"] or scale_aware["over_state_bar"]
+    if arch == "mamba2-780m":
+        half = l // 2
+        long_args = ssd_inputs_long_memory(gen, *shape, torch.bfloat16, dev)
+        first = tuple(t[:, :half].contiguous() if t.dim() > 1 else t for t in long_args)
+        second = tuple(t[:, half:].contiguous() if t.dim() > 1 else t for t in long_args)
+        y1, h1 = ks.ssd_scan(*first, chunk=chunk)
+        y2, h2 = ks.ssd_scan(*second, chunk=chunk, h0=h1)
+        want_y, want_h = ks.ssd_scan_plain(*long_args, chunk=chunk)
+        split = ssd_rel(torch.cat([y1, y2], dim=1), want_y, h2, want_h, chunk)
+        row["split_in_two"] = {"halves": [half, l - half], "draw": "ssd_inputs_long_memory",
+                               "segments_a_half": k4_blocks(b, half, h, chunk, torch.bfloat16, dev)["segments"],
+                               "held_to": "the plain version's scan of the whole", **split}
+        failed = failed or split["over_chunk_bar"] or split["over_state_bar"]
+        del want_y, want_h, y1, y2
+    if failed:
+        emit(row)
+        raise AssertionError(f"ssd_scan with h0 at {cfg.name}'s long_500k window: elements over the bar")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    row["ms"] = time_ms(lambda: ks.ssd_scan(*args, chunk=chunk, h0=h0), flush, runs=LONG_TIMED_RUNS)
+    row["plain_ms"] = time_ms(lambda: ks.ssd_scan_plain(*args, chunk=chunk, h0=h0), flush, runs=1, warm=0)
+    row["library_ms"] = None
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, h0, y, h_final))
+    row.update(bound(nbytes, ssd_ops(b, l, h, p, n, chunk), BF16_TC_OPS_PER_S, card))
+    row["over_bound"] = row["ms"] / row["bound_ms"]
+    entry = summary["ssd_scan"]
+    entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+    entry[key] = {name: row[name] for name in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "over_bound", "max_abs_err", "segments")}
+    entry[key]["launches"] = 0  # long_run adds the path's
+    emit(row)
+
+
+def long_window_check(dev: torch.device, dtype: str) -> None:
+    """Jamba-1.5-large in JAMBA_LONG_LAYERS layers at full width in ``dtype``,
+    one row: the prefill in token windows against the whole prefill of the
+    same prompt on the card, ``WINDOW_CHECK[dtype]`` (bf16: 32,768 tokens in
+    4 windows of 8,192; f32, TF32 off: 4,096 in 4 of 1,024), on
+    ``condition_attention``'s weights at the config's capacity factor (the
+    windowed rule drops the pairs the whole one drops): the last logits over
+    the vocabulary and every layer's k, v, ssm and conv within MODEL_REL
+    (bf16; ssm HYBRID_STATE_REL) or TRAIN_F32_REL (f32) of the whole
+    prefill's largest value.  The whole prefill runs first and records its
+    expert choices, and the windowed one replays them: cuBLAS takes other
+    algorithms for a window's rows than for the whole prompt's, so bf16
+    rounds otherwise, and a near-tied token could route apart; the windowed
+    run's own choices that differ are printed, a swap at a gap over SWAP_GAP
+    (bf16) or SWAP_GAP_F32 (f32) fails.  K3 launches once and K4 twice in the
+    whole prefill, once and twice a window in the windowed one."""
+    import route_check
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import prefill_windows
+    from repro_torch.models.ssm import scan_chunk
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), num_layers=JAMBA_LONG_LAYERS, dtype=dtype)
+    s, window = WINDOW_CHECK[dtype]
+    names = ("k", "v", "ssm", "conv")
+    bars = dict.fromkeys(("logits", *names), TRAIN_F32_REL if dtype == "float32" else MODEL_REL)
+    if dtype == "bfloat16":
+        bars["ssm"] = HYBRID_STATE_REL
+    shape, prefill, _ = long_steps(cfg, "prefill_32k", 1, dev)
+    t0 = time.monotonic()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = condition_attention(cfg, Model(cfg).init(seed=0, device=dev))
+        tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=torch.Generator().manual_seed(16))
+        launches = {}
+        with route_check.RouteRecorder() as whole_routes:
+            before = _kernel_launches()
+            logits, cache = prefill(params, {"tokens": tokens})
+            launches["whole"] = since(before)
+        with route_check.RouteRecorder(replay=whole_routes.idx) as windowed_routes:
+            before = _kernel_launches()
+            got_logits, got_cache = prefill(params, {"tokens": tokens}, window=window)
+            launches["windowed"] = since(before)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    routes = route_row(cfg, whole_routes.probs, windowed_routes.probs)
+    routes["differences"] = sorted(routes["differences"], key=lambda d: -d["gap"])[:ROUTE_DIFFERENCES_SHOWN]
+    routes["note"] = "the windowed prefill replays the whole one's choices; its own that differ are counted"
+    vocab = cfg.vocab_size
+    errs = {"logits": _rel_err(got_logits[..., :vocab], logits[..., :vocab].float().cpu(), "windowed logits"),
+            **cache_errors(got_cache, cache, names)}
+    windows = len(prefill_windows(cfg, s, window))
+    want = {"whole": prefill_launches(cfg), "windowed": {k: windows * n for k, n in prefill_launches(cfg).items()}}
+    row = {"phase": "long_shapes", "case": f"windowed_against_whole_{dtype}", "arch": cfg.name, "dtype": dtype,
+           "layers": cfg.num_layers, "capacity_factor": cfg.moe.capacity_factor,
+           "weights": conditioned_weights(cfg), "rows": 1, "tokens": s, "window": window, "windows": windows,
+           "scan_chunks": {"whole": scan_chunk(cfg, s), "windowed": sorted(
+               {scan_chunk(cfg, t1 - t0) for t0, t1 in prefill_windows(cfg, s, window)})},
+           "launches": launches, "max_rel_err": errs, "routes": routes,
+           "bar": "logits[..., :vocab] and each layer's k, v, ssm, conv: max |windowed - whole| <= bar * max |whole|",
+           "bars": bars, "seconds": time.monotonic() - t0}
+    emit(row)
+    if launches != want:
+        raise AssertionError(f"long_shapes windowed check {dtype}: launches {launches}, not {want}")
+    if errs.keys() != bars.keys() or any(errs[k] > bars[k] for k in bars):
+        raise AssertionError(f"long_shapes windowed check {dtype} over the bar: {errs}")
+    if routes["max_swap_gap"] > routes["swap_gap_bar"]:
+        raise AssertionError(f"long_shapes windowed check {dtype}: a route swapped at a gap of {routes['max_swap_gap']}")
 
 
 def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
@@ -2724,16 +3036,26 @@ def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
     InternVL2 (4 rows, its vision prefix) and Mamba2-780m (8 rows) at
     ``prefill_32k`` and ``decode_32k``, MusicGen's and InternVL2's decode
     checks in 4 layers and Granite's at the capacity that drops no pair;
-    Mamba2-780m at ``long_500k`` (a prefill of 524,288 tokens, then 16
-    decode steps from its state); and the state after 524,288 tokens by one
-    chunk against another and the recurrent decode, in bf16 and, as its
-    witness, in f32.  Each ``prefill_32k`` runs one timed prefill beside
-    the traced one (cut from 2 for the time limit; each ``decode_32k`` runs
-    the prefill of 32,704 tokens once more)."""
+    Mamba2-780m at ``long_500k`` (a prefill of 524,288 tokens in 16 token
+    windows, then 16 decode steps from its state); the state after 524,288
+    tokens against a prefill of 64 fewer and the recurrent decode, in bf16
+    and, as its witness, in f32; K3 at the last two windows of Jamba's
+    ``long_500k`` prefill (``long_k3_window``) and K4 from an initial
+    state at Jamba's and Mamba2's windows (``long_k4_h0``) against their
+    plain versions;
+    Jamba's windowed prefill against its whole one at 32,768 tokens
+    (``long_window_check``, bf16 and an f32 witness); Jamba in 3 layers at
+    ``long_500k`` (a prefill of 524,272 tokens in 17 windows, then 16 decode
+    steps to the cache's last slot) and its decode step there against the
+    windowed prefill of one token more.  Each ``prefill_32k`` runs one
+    timed prefill beside the traced one (cut from 2 for the time limit;
+    each ``decode_32k`` runs the prefill of 32,704 tokens once more)."""
     cases = [(f"k3 {arch}", long_k3, (dev, summary, card, arch), {}) for arch in LONG_K3]
+    cases += [("k3 jamba-1.5-large-398b long_500k windows", long_k3_window, (dev, summary, card), {})]
     cases += [(f"k4 {arch} {shape}", long_k4, (dev, summary, card, arch, shape), {}) for arch, shape in LONG_K4]
     cases += [("k4 mamba2-780m long_500k long_memory", long_k4, (dev, summary, card, "mamba2-780m", "long_500k"),
                {"long_memory": True})]
+    cases += [(f"k4 h0 {arch} long_500k window", long_k4_h0, (dev, summary, card, arch), {}) for arch in LONG_K4_H0]
     jamba, qwen15, granite = "jamba-1.5-large-398b", "qwen1.5-110b", "granite-moe-1b-a400m"
 
     def prefill_32k(arch, layers=None):
@@ -2769,6 +3091,13 @@ def phase_long_shapes(dev: torch.device, summary: dict, card: str) -> None:
          (dev, summary, "mamba2-780m", "long_500k", 0, LONG_500K_STEPS, 1, "prefill"), {}),
         ("state check bfloat16", long_state_check, (dev, "bfloat16"), {}),
         ("state check float32", long_state_check, (dev, "float32"), {}),
+        *((f"{jamba} windowed check {dtype}", long_window_check, (dev, dtype), {})
+          for dtype in ("bfloat16", "float32")),
+        (f"{jamba} long_500k", long_run,  # one prefill, traced and timed
+         (dev, summary, jamba, "long_500k", LONG_500K_ROOM, LONG_500K_STEPS, 0, "prefill"),
+         {"layers": JAMBA_LONG_LAYERS}),
+        (f"{jamba} long_500k decode check", long_moe_decode_check,
+         (dev, jamba, "bfloat16", "long_500k", LONG_500K_PROMPT), {}),
     ]
     for label, fn, args, kwargs in cases:
         timed(f"long_shapes {label}", fn, *args, **kwargs)

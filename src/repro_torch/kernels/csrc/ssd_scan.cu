@@ -7,7 +7,9 @@
 //   cs = cumsum(dt * a);  L = where(i >= j, exp(cs_i - cs_j), 0)
 //   y  = ((C . B^T) * L * dt_j) . x + exp(cs_i) * (C . h^T)   (h before the update)
 //   h <- exp(cs_last) * h + (x * exp(cs_last - cs) * dt)^T . B
-// y rounded to x's dtype once per chunk; h_final f32.
+// y rounded to x's dtype once per chunk; h_final f32.  h starts from h0 (B, H,
+// P, N) f32 where the caller gives one (a scan that continues another, as a
+// prefill in token windows does), else from zero.
 //
 // Bound.  At the serving shape, x (8,512,48,64) bf16, dt (8,512,48) f32, b
 // and c (8,512,1,128) bf16, chunk 256, one call moves 65.8 MB (0.020 ms at
@@ -39,7 +41,10 @@
 //     folded over its s predecessors (s x 32 KB read at P 64, N 128; a
 //     third pass would cost a launch and a round trip of h_in for the same
 //     few loads), then walks its chunks as one block walked all of them
-//     before: y of every chunk, and the last segment writes h_final.
+//     before: y of every chunk, and the last segment writes h_final.  With
+//     an initial state the fold starts from it, h_in(0) = h0, so segment 0
+//     starts from h0 and every later one takes it on with its decay; pass A
+//     is unchanged (its local states start from zero).
 //     Blocks run head-fastest, so the heads of one segment, which read the
 //     same rows of b and c, are on the card together.  Both passes go from
 //     one host call on the caller's stream, with nothing between them.
@@ -100,7 +105,8 @@
 //     and stored from registers, rows past the chunk and columns past P not
 //     at all.  At a chunk's end both consumers meet (a named barrier), write
 //     their panels of the new h as hi + lo, and meet again (not after the
-//     last chunk).  Segment 0's first chunk multiplies no C . h^T: h is 0.
+//     last chunk).  Segment 0's first chunk multiplies no C . h^T where no h0
+//     is given: h is 0.
 //   - Pass A's warpgroups split each chunk's tiles instead, each
 //     multiplying all of N (m64n128, or m64n64 at N <= 64) over its own
 //     steps and keeping its own part of the state (the recurrence is
@@ -223,7 +229,9 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_wgmma_bf16(
     const __grid_constant__ CUtensorMap x_map,  // x as (P, H, B*L), box (64, 1, 64)
     const __grid_constant__ CUtensorMap b_map,  // b as (N, G, B*L), box (64, 1, 64)
     const __grid_constant__ CUtensorMap c_map,  // c alike (pass B)
-    const float* __restrict__ dt, const float* __restrict__ a, __nv_bfloat16* __restrict__ y,
+    const float* __restrict__ dt, const float* __restrict__ a,
+    const float* __restrict__ h0,  // (B, H, P, N) f32, or null: the state segment 0 starts from (pass B)
+    __nv_bfloat16* __restrict__ y,
     float* __restrict__ h_final, float* __restrict__ h_loc, double* __restrict__ d_loc, int seq, int heads,
     int groups, int p, int n, int chunk, int segments) {
   constexpr int SLOTS = ring_slots(NPAN, FULL);
@@ -403,11 +411,19 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_wgmma_bf16(
   auto wait_full = [&](int stage) { mbar_wait(full_bar(stage % SLOTS), (stage / SLOTS) & 1); };
   auto tile_at = [&](int stage) { return ring + (stage % SLOTS) * TILE; };
 
-  if (FULL && s > 0) {
-    // the carry: h_in(s) = exp(D(s-1)) h_in(s-1) + h_loc(s-1), folded over
-    // the segments before this one (segment 0 starts from h = 0, which its
-    // first chunk does not multiply)
+  if (FULL && (s > 0 || h0 != nullptr)) {
+    // the carry: h_in(0) = h0; h_in(s) = exp(D(s-1)) h_in(s-1) + h_loc(s-1),
+    // folded over the segments before this one (without h0, segment 0
+    // starts from h = 0, which its first chunk does not multiply)
     if (has_panel) {
+      if (h0 != nullptr) {
+        const float* hz = h0 + bh * p * n;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = at_row(i), c = at_col(i);
+          h[i] = r < p && c < n ? hz[r * n + c] : 0.f;
+        }
+      }
       for (int j = 0; j < s; ++j) {
         const int64_t at = bh * (segments - 1) + j;
         const float e = static_cast<float>(exp(d_loc[at]));
@@ -582,7 +598,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_wgmma_bf16(
         wait_full(stage0 + r);
         const uint32_t c_tile = tile_at(stage0 + r) + (1 + NPAN) * kPanel;
         float yacc[32];
-        if (s == 0 && k == k0) {  // h is 0: so is C . h^T
+        if (s == 0 && k == k0 && h0 == nullptr) {  // h is 0: so is C . h^T
 #pragma unroll
           for (int e = 0; e < 32; ++e) yacc[e] = 0.f;
         } else {
@@ -733,9 +749,9 @@ cudaError_t prepare() {
 }
 
 template <int NPAN>
-cudaError_t launch(const void* x, const void* dt, const void* a, const void* b, const void* c, void* y,
-                   void* h_final, void* h_loc, void* d_loc, int bsz, int seq, int heads, int p, int groups, int n,
-                   int chunk, int segments, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* dt, const void* a, const void* b, const void* c, const void* h0,
+                   void* y, void* h_final, void* h_loc, void* d_loc, int bsz, int seq, int heads, int p, int groups,
+                   int n, int chunk, int segments, cudaStream_t stream) {
   CUtensorMap xm, bm, cm;
   const int64_t rows = static_cast<int64_t>(bsz) * seq;
   cudaError_t err = encode(&xm, x, p, heads, rows);
@@ -746,18 +762,19 @@ cudaError_t launch(const void* x, const void* dt, const void* a, const void* b, 
   if (err != cudaSuccess) return err;
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
+  const float* hz = static_cast<const float*>(h0);
   __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
   float* hf = static_cast<float*>(h_final);
   float* hl = static_cast<float*>(h_loc);
   double* dl = static_cast<double*>(d_loc);
   if (segments > 1) {
     ssd_wgmma_bf16<NPAN, false><<<bsz * heads * (segments - 1), kThreads, smem_bytes(NPAN, false), stream>>>(
-        xm, bm, cm, dtf, af, yb, hf, hl, dl, seq, heads, groups, p, n, chunk, segments);
+        xm, bm, cm, dtf, af, hz, yb, hf, hl, dl, seq, heads, groups, p, n, chunk, segments);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   ssd_wgmma_bf16<NPAN, true><<<bsz * heads * segments, kThreads, smem_bytes(NPAN, true), stream>>>(
-      xm, bm, cm, dtf, af, yb, hf, hl, dl, seq, heads, groups, p, n, chunk, segments);
+      xm, bm, cm, dtf, af, hz, yb, hf, hl, dl, seq, heads, groups, p, n, chunk, segments);
   return cudaGetLastError();
 }
 
@@ -796,7 +813,8 @@ template <int NP>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_cuda_f32(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ a, const float* __restrict__ bm,
-                 const float* __restrict__ cm, float* __restrict__ y, float* __restrict__ h_final,
+                 const float* __restrict__ cm, const float* __restrict__ h0,  // h0: null = a zero start
+                 float* __restrict__ y, float* __restrict__ h_final,
                  int seq, int heads, int groups, int n, int chunk) {
   constexpr int P = NP * 16;
   constexpr int kLdX = P + 1;
@@ -817,7 +835,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* xs_tile = bs_tile + kTile * ldn;  // kTile x kLdX: x of the column tile
   float* s_tile = xs_tile + kTile * kLdX;  // kTile x kLdS: scores
 
-  for (int e = threadIdx.x; e < P * ldn; e += kThreads) hs[e] = 0.f;
+  const float* h0_bh = h0 == nullptr ? nullptr : h0 + (static_cast<int64_t>(bi) * heads + hi) * P * n;
+  for (int e = threadIdx.x; e < P * ldn; e += kThreads) {
+    const int r = e / ldn, k = e - r * ldn;
+    hs[e] = h0_bh != nullptr && k < n ? h0_bh[r * n + k] : 0.f;
+  }
   const float a_h = a[hi];
   const int64_t x_stride = static_cast<int64_t>(heads) * P;  // between steps
   const int64_t bc_stride = static_cast<int64_t>(groups) * n;
@@ -985,7 +1007,7 @@ size_t smem_bytes(int p, int n, int chunk) {
 }
 
 template <int NP>
-cudaError_t launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
+cudaError_t launch(const void* x, const void* dt, const void* a, const void* b, const void* c, const void* h0,
                    void* y, void* h_final, int bsz, int seq, int heads, int groups, int n,
                    int chunk, cudaStream_t stream) {
   const size_t smem = smem_bytes(NP * 16, n, chunk);
@@ -998,19 +1020,20 @@ cudaError_t launch(const void* x, const void* dt, const void* a, const void* b, 
   }
   kernel<<<bsz * heads, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const float*>(c), static_cast<float*>(y),
+      static_cast<const float*>(b), static_cast<const float*>(c), static_cast<const float*>(h0),
+      static_cast<float*>(y),
       static_cast<float*>(h_final), seq, heads, groups, n, chunk);
   return cudaGetLastError();
 }
 
-cudaError_t launch_p(const void* x, const void* dt, const void* a, const void* b, const void* c,
+cudaError_t launch_p(const void* x, const void* dt, const void* a, const void* b, const void* c, const void* h0,
                      void* y, void* h_final, int bsz, int seq, int heads, int p, int groups, int n,
                      int chunk, cudaStream_t s) {
   switch (p) {
-    case 16: return launch<1>(x, dt, a, b, c, y, h_final, bsz, seq, heads, groups, n, chunk, s);
-    case 32: return launch<2>(x, dt, a, b, c, y, h_final, bsz, seq, heads, groups, n, chunk, s);
-    case 48: return launch<3>(x, dt, a, b, c, y, h_final, bsz, seq, heads, groups, n, chunk, s);
-    case 64: return launch<4>(x, dt, a, b, c, y, h_final, bsz, seq, heads, groups, n, chunk, s);
+    case 16: return launch<1>(x, dt, a, b, c, h0, y, h_final, bsz, seq, heads, groups, n, chunk, s);
+    case 32: return launch<2>(x, dt, a, b, c, h0, y, h_final, bsz, seq, heads, groups, n, chunk, s);
+    case 48: return launch<3>(x, dt, a, b, c, h0, y, h_final, bsz, seq, heads, groups, n, chunk, s);
+    case 64: return launch<4>(x, dt, a, b, c, h0, y, h_final, bsz, seq, heads, groups, n, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1026,12 +1049,13 @@ cudaError_t launch_p(const void* x, const void* dt, const void* a, const void* b
 // chunk up to 256, segments up to the number of chunks.  dtype 1 =
 // float32: ssd_cuda_f32, any chunk, segments 1.  x and y (B, L, H, P), dt
 // (B, L, H), a (H,), b and c (B, L, G, N), h_final (B, H, P, N), all
-// contiguous, x, b and c 16-byte aligned.  P is 16, 32, 48 or 64; N a
-// multiple of 16 up to 128; H % G == 0; L % chunk == 0.  Returns the first
-// launch error (0 = launched).
-extern "C" int ssd_launch(const void* x, const void* dt, const void* a, const void* b, const void* c, void* y,
-                          void* h_final, void* h_loc, void* d_loc, int dtype, int bsz, int seq, int heads, int p,
-                          int groups, int n, int chunk, int segments, void* stream) {
+// contiguous, x, b and c 16-byte aligned; h0 (B, H, P, N) f32 contiguous,
+// the state the scan starts from, or null for zero.  P is 16, 32, 48 or 64;
+// N a multiple of 16 up to 128; H % G == 0; L % chunk == 0.  Returns the
+// first launch error (0 = launched).
+extern "C" int ssd_launch(const void* x, const void* dt, const void* a, const void* b, const void* c, const void* h0,
+                          void* y, void* h_final, void* h_loc, void* d_loc, int dtype, int bsz, int seq, int heads,
+                          int p, int groups, int n, int chunk, int segments, void* stream) {
   if (groups <= 0 || heads % groups || chunk <= 0 || seq % chunk || n <= 0 || n % 16 ||
       n / 16 > kMaxStateCols || segments < 1 || segments > seq / chunk)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1039,13 +1063,13 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* a, const vo
   if (dtype == 0) {
     if (chunk > wg::kMaxChunk || p % 16 || p > 64 || (segments > 1 && (h_loc == nullptr || d_loc == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
-    return n > 64 ? wg::launch<2>(x, dt, a, b, c, y, h_final, h_loc, d_loc, bsz, seq, heads, p, groups, n, chunk,
-                                  segments, s)
-                  : wg::launch<1>(x, dt, a, b, c, y, h_final, h_loc, d_loc, bsz, seq, heads, p, groups, n, chunk,
-                                  segments, s);
+    return n > 64 ? wg::launch<2>(x, dt, a, b, c, h0, y, h_final, h_loc, d_loc, bsz, seq, heads, p, groups, n,
+                                  chunk, segments, s)
+                  : wg::launch<1>(x, dt, a, b, c, h0, y, h_final, h_loc, d_loc, bsz, seq, heads, p, groups, n,
+                                  chunk, segments, s);
   }
   if (dtype == 1 && segments == 1)
-    return f32::launch_p(x, dt, a, b, c, y, h_final, bsz, seq, heads, p, groups, n, chunk, s);
+    return f32::launch_p(x, dt, a, b, c, h0, y, h_final, bsz, seq, heads, p, groups, n, chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,7 +5,9 @@ f32 (negative) runs through the state-space recurrence whose input and
 output maps b and c (B, L, G, N) are shared by the H // G heads of a group:
 head ``hi`` reads group ``hi // (H // G)``, so b and c are never repeated
 in memory.  Returns y (B, L, H, P) in x's dtype and the final state
-h_final (B, H, P, N) f32.
+h_final (B, H, P, N) f32.  The state starts from ``h0`` (B, H, P, N) f32
+where one is given (a scan that continues another: the reference's
+``ssd_chunked(..., h0=...)``), else from zero.
 
 The arithmetic is the Pallas body's (``src/repro/kernels/ssd_scan.py``),
 not ``ssd_chunked``'s or the stepwise oracle's.  Chunk by chunk, in f32,
@@ -40,7 +42,10 @@ each sequence's chunks into ``segment_plan`` segments (``segment_bounds``):
 a first pass scans each segment but the last from a zero state to its local
 state and log-decay, and the second walks every segment from the state the
 ones before it carry (see ``csrc/ssd_scan.cu``).  The recurrence is linear,
-so the result is the same function, up to rounding.
+so the result is the same function, up to rounding.  An initial state h0
+enters that carry's fold at segment 0 (the f32 kernel starts its walk from
+it): a scan of a prompt's token windows, each from the state the one
+before left, is the scan of the whole.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ _BF16_MAX_CHUNK = 256  # bf16: a chunk is at most four 64-row tiles, all in the 
 _SMS_H100 = 132
 
 
-def _check(x, dt, a, b, c, chunk: int) -> None:
+def _check(x, dt, a, b, c, chunk: int, h0=None) -> None:
     """The reference's assertions, raised as errors, plus shapes and dtypes."""
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 4 or c.dim() != 4:
         raise ValueError(
@@ -84,6 +89,9 @@ def _check(x, dt, a, b, c, chunk: int) -> None:
         raise TypeError(f"dt and a must be float32; got {dt.dtype}, {a.dtype}")
     if not (x.device == dt.device == a.device == b.device == c.device):
         raise ValueError(f"x, dt, a, b and c lie on {x.device}, {dt.device}, {a.device}, {b.device}, {c.device}")
+    want = (bsz, h, x.shape[3], b.shape[3])
+    if h0 is not None and (tuple(h0.shape) != want or h0.dtype != torch.float32 or h0.device != x.device):
+        raise ValueError(f"h0 must be float32 {want} on {x.device}; got {h0.dtype} {tuple(h0.shape)} on {h0.device}")
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int, d_state: int) -> str:
@@ -134,10 +142,10 @@ def chunk_cumsum(da: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cumsum(da.double(), dim=dim).float()
 
 
-def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``ssd_scan`` (any device): the Pallas body
-    chunk by chunk, for all batches and heads at once."""
-    _check(x, dt, a, b, c, chunk)
+    chunk by chunk, for all batches and heads at once, from ``h0`` or zero."""
+    _check(x, dt, a, b, c, chunk, h0)
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     hg = h // g
@@ -150,7 +158,10 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128) -> tuple[torch.Tensor, t
     ag = a.reshape(g, hg)
     idx = torch.arange(chunk, device=x.device)
     lower = (idx[:, None] >= idx[None, :])[None, :, :, None, None]  # (1, i, j, 1, 1)
-    state = torch.zeros((bsz, g, hg, p, n), dtype=torch.float32, device=x.device)
+    if h0 is None:
+        state = torch.zeros((bsz, g, hg, p, n), dtype=torch.float32, device=x.device)
+    else:
+        state = h0.reshape(bsz, g, hg, p, n)
     ys = []
     for ci in range(nc):
         xc, dtc, bc, cc = xf[:, ci], dtf[:, ci], bf[:, ci], cf[:, ci]
@@ -172,7 +183,7 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128) -> tuple[torch.Tensor, t
 def _lib() -> ctypes.CDLL:
     lib = _build.library("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ssd_launch.restype = i
     return lib
 
@@ -185,6 +196,7 @@ def ssd_scan(
     c: torch.Tensor,  # (B, L, G, N)
     *,
     chunk: int = 128,
+    h0: torch.Tensor | None = None,  # (B, H, P, N) f32: the state the scan starts from (None: zero)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) f32).
     Raises ``ValueError`` where the reference asserts: ``H % G`` and
@@ -193,10 +205,10 @@ def ssd_scan(
     (``segment_plan``) allocates the first pass's scratch, (B, H, S - 1,
     P, N) f32 and (B, H, S - 1) f64."""
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: x must lie on the CPU or a CUDA device; got {x.device}")
-    _check(x, dt, a, b, c, chunk)
+    _check(x, dt, a, b, c, chunk, h0)
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     bf16 = kernel_route(x.dtype, p, n) == "wgmma_bf16"
@@ -205,8 +217,8 @@ def ssd_scan(
     segments = segment_plan(bsz, h, l // chunk, _sms(x.device.index or 0)) if bf16 and x.numel() else 1
     if bsz * h * segments > 2**31 - 1 or bsz * l > 2**31 - 1:
         raise ValueError(f"ssd_scan: batch {bsz} x heads {h} x length {l} is too many blocks or rows")
-    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
-        if not t.is_contiguous():
+    for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c), ("h0", h0)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.data_ptr() % 16:
@@ -214,7 +226,7 @@ def ssd_scan(
     y = torch.empty_like(x)
     h_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return y, h_final.zero_()
+        return y, h_final.zero_() if h0 is None else h_final.copy_(h0)
     h_loc = d_loc = None
     if segments > 1:
         h_loc = torch.empty((bsz, h, segments - 1, p, n), dtype=torch.float32, device=x.device)
@@ -223,7 +235,8 @@ def ssd_scan(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_launch(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
             h_final.data_ptr(), h_loc.data_ptr() if segments > 1 else None,
             d_loc.data_ptr() if segments > 1 else None, _DTYPES[x.dtype], bsz, l, h, p, g, n, chunk, segments,
             stream,

@@ -91,7 +91,8 @@ def build_train_step(
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, device=None) -> StepBundle:
-    """``fn(params, batch, seq_cap=None)`` → (logits, cache of capacity seq_cap);
+    """``fn(params, batch, seq_cap=None, window=None)`` → (logits, cache of
+    capacity seq_cap), in token windows past ``window`` (``Model.prefill``);
     ``batch`` holds ``tokens`` (B, S), or (B, S, n_codebooks) for a
     multi-codebook config, optionally ``positions`` (B, S), and for a
     vision-prefix config ``vis_embed`` (B, vis_prefix_len, d_model); each
@@ -100,10 +101,10 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, device=None) -> Ste
     model = Model(cfg)
 
     @torch.inference_mode()
-    def prefill(params, batch, seq_cap=None):
+    def prefill(params, batch, seq_cap=None, window=None):
         inputs = {name: torch.as_tensor(batch[name]).to(dev) for name in ("tokens", "positions", "vis_embed")
                   if name in batch}
-        return model.prefill(params, inputs, seq_cap)
+        return model.prefill(params, inputs, seq_cap, window)
 
     return StepBundle(model, shape, prefill)
 

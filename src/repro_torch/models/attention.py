@@ -12,7 +12,8 @@ Three entry points for each:
     hand-written ``flash_attention`` kernel, masked by position as the
     reference's prefill masks (by index where the prompt carries no
     positions); writes the layer's K/V into the head of a preallocated
-    cache;
+    cache.  A window of a prefill in token windows writes its slots and
+    attends to every slot up to its last;
   - ``attn_decode``: one new token against a preallocated cache, written
     in place, with plain masked attention over the cache's capacity.
 
@@ -177,47 +178,55 @@ def _sdpa(cfg: ModelConfig, q, k, v, q_pos, kv_pos, q_seg, kv_seg):
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
-def _causal_flash(q, k, v, positions=None):
-    """q: (B,S,K,G,hd), k/v: (B,S,K,hd) → (B,S,K·G,hd) through the kernel.
+def _causal_flash(q, k, v, q_pos=None, kv_pos=None):
+    """q: (B,Sq,K,G,hd), k/v: (B,Skv,K,hd), Sq <= Skv → (B,Sq,K·G,hd)
+    through the kernel, q right-aligned to k (query i at key position
+    i + Skv - Sq: a window of a prefill in token windows against every key
+    up to its own last).
 
     Query head ``kh·G + g`` maps to kv head ``kh``, the kernel's
-    ``h // group``; k and v go over as (B,K,S,hd).  Any S: q, k and v are
-    padded with zeros at the end to a multiple of 64, with tile 128 where
-    that divides the padded length and 64 otherwise, and the output is cut
-    back to S; the padded query rows are dropped.  With ``positions`` (B,S)
-    the kernel keeps a key iff its position is at most the query's; the
-    padded keys take position INT32_MAX and the padded queries INT32_MIN,
-    so no real query sees a padded key.  Without, it masks by index, and
-    the padded keys come after every real query.  A head dim the kernel
-    does not take (the smoke configs' 16 or 24) is zero-padded to the next
-    one it does (``kernel_head_dim``), at the scale 1/sqrt(hd), and the
-    output's padded columns are cut off."""
-    b, s, kh, g, hd = q.shape
-    pad = -s % FLASH_PAD
-    blk = 128 if (s + pad) % 128 == 0 else 64
+    ``h // group``; k and v go over as (B,K,Skv,hd).  Any lengths: q, k and
+    v are padded with zeros at the end by the same number of rows, which
+    keeps the alignment, to multiples of 64, and where Skv - Sq is not one,
+    q takes the rows before it that make it so; the tile is 128 where that
+    divides both padded lengths and 64 otherwise, and the padded query rows
+    are dropped.  With ``q_pos`` (B,Sq) and ``kv_pos`` (B,Skv) the kernel
+    keeps a key iff its position is at most the query's; the padded keys
+    take position INT32_MAX and the padded queries INT32_MIN, so no real
+    query sees a padded key.  Without, it masks by index, and the padded
+    keys come after every real query.  A head dim the kernel does not take
+    (the smoke configs' 16 or 24) is zero-padded to the next one it does
+    (``kernel_head_dim``), at the scale 1/sqrt(hd), and the output's padded
+    columns are cut off."""
+    b, sq, kh, g, hd = q.shape
+    skv = k.shape[1]
+    front = (skv - sq) % FLASH_PAD
+    pad = -(front + sq) % FLASH_PAD
+    blk = 128 if (front + sq + pad) % 128 == 0 and (skv + pad) % 128 == 0 else 64
     widen = kernel_head_dim(q.dtype, hd) - hd
-    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, s, hd)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, kh * g, sq, hd)
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
-    if pad or widen:
-        qh, kt, vt = (torch.nn.functional.pad(x, (0, widen, 0, pad)) for x in (qh, kt, vt))
+    if front or pad or widen:
+        qh = torch.nn.functional.pad(qh, (0, widen, front, pad))
+        kt, vt = (torch.nn.functional.pad(x, (0, widen, 0, pad)) for x in (kt, vt))
     qh, kt, vt = qh.contiguous(), kt.contiguous(), vt.contiguous()
-    q_pos = kv_pos = None
-    if positions is not None:
-        pos = positions.to(torch.int32)
-        q_pos, kv_pos = (torch.cat([pos, pos.new_full((b, pad), fill)], dim=1).contiguous()
-                         for fill in (INT32_MIN, INT32_MAX))
+    if q_pos is not None:
+        q_pos = torch.nn.functional.pad(q_pos.to(torch.int32), (front, pad), value=INT32_MIN).contiguous()
+        kv_pos = torch.nn.functional.pad(kv_pos.to(torch.int32), (0, pad), value=INT32_MAX).contiguous()
     o = ops.flash_attention(qh, kt, vt, causal=True, sm_scale=1.0 / (hd**0.5), block_q=blk, block_k=blk,
                             q_pos=q_pos, kv_pos=kv_pos)
-    return o[:, :, :s, :hd].transpose(1, 2)
+    return o[:, :, front:front + sq, :hd].transpose(1, 2)
 
 
-def _prompt_positions(x: torch.Tensor, positions):
-    """RoPE's positions for a prompt x (B,S,D): ``positions``, or
-    ``arange(S)`` in every row when the prompt carries none."""
+def _prompt_positions(x: torch.Tensor, positions, t0: int = 0):
+    """RoPE's positions for the prompt's tokens t0 .. t0+S-1, x (B,S,D):
+    those columns of ``positions`` (B, the whole prompt), or ``arange`` of
+    them in every row when the prompt carries none."""
+    s = x.shape[1]
     if positions is None:
-        return torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
-    return positions
+        return torch.arange(t0, t0 + s, device=x.device).expand(x.shape[0], s)
+    return positions[:, t0:t0 + s]
 
 
 # ---------------------------------------------------------------------------
@@ -262,17 +271,29 @@ def attn_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
     return _out(o.reshape(*x.shape[:2], cfg.num_heads, cfg.resolved_head_dim), p["wo"])
 
 
-def attn_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
-    """Causal attention over the prompt x (B,S,D) at ``positions`` (B,S),
-    which RoPE reads and the kernel masks by (a key is seen from positions
-    at or after its own, as in the reference); ``None`` means ``arange(S)``
-    in every row, masked by index.  Writes the layer's k and v into
-    ``cache["k"|"v"][:, :S]`` (B,S_cap,K,hd)."""
-    q, k, v = _qkv(cfg, p, x, _prompt_positions(x, positions))
-    s = x.shape[1]
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
-    o = _causal_flash(_group(q, cfg.num_kv_heads), k, v, positions)
+def _window_positions(positions, t0: int, t1: int):
+    """The kernel's (q_pos, kv_pos) for the prompt's tokens t0 .. t1-1
+    against its keys 0 .. t1-1, or (None, None): masked by index."""
+    if positions is None:
+        return None, None
+    return positions[:, t0:t1], positions[:, :t1]
+
+
+def attn_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict, t0: int = 0):
+    """Causal attention over the prompt's tokens t0 .. t0+S-1, x (B,S,D), at
+    ``positions`` (B, the whole prompt), which RoPE reads and the kernel
+    masks by (a key is seen from positions at or after its own, as in the
+    reference); ``None`` means ``arange`` in every row, masked by index.
+    Writes the tokens' k and v into ``cache["k"|"v"][:, t0:t0+S]``
+    (B,S_cap,K,hd); the queries attend to slots 0 .. t0+S-1, the cache's
+    for the tokens before t0 (a window of a prefill in token windows)."""
+    q, k, v = _qkv(cfg, p, x, _prompt_positions(x, positions, t0))
+    t1 = t0 + x.shape[1]
+    cache["k"][:, t0:t1] = k
+    cache["v"][:, t0:t1] = v
+    if t0:
+        k, v = cache["k"][:, :t1], cache["v"][:, :t1]
+    o = _causal_flash(_group(q, cfg.num_kv_heads), k, v, *_window_positions(positions, t0, t1))
     return _out(o, p["wo"])
 
 
@@ -318,15 +339,21 @@ def _mla_kv_latent(cfg: ModelConfig, p: dict, x, positions):
     return ckv, k_rope
 
 
+def _mla_kv(p: dict, ckv, k_rope):
+    """The non-absorbed k (B,S,H,nope+rope), every head's sharing the one
+    rope key, and v (B,S,H,v_head_dim) of the latents."""
+    k_nope = _proj(ckv, p["w_uk"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], k_rope.shape[-1])], dim=-1)
+    return k, _proj(ckv, p["w_uv"])
+
+
 def _mla_qkv(cfg: ModelConfig, p: dict, x, positions):
     """The non-absorbed form: q and k (B,S,H,nope+rope), every head's k
     sharing the one rope key, and v (B,S,H,v_head_dim); and the latents."""
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     ckv, k_rope = _mla_kv_latent(cfg, p, x, positions)
-    k_nope = _proj(ckv, p["w_uk"])
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], k_rope.shape[-1])], dim=-1)
-    return q, k, _proj(ckv, p["w_uv"]), ckv, k_rope
+    k, v = _mla_kv(p, ckv, k_rope)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v, ckv, k_rope
 
 
 def mla_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
@@ -337,19 +364,23 @@ def mla_train(cfg: ModelConfig, p: dict, x, positions, segment_ids):
     return _out(o[:, :, :, 0, :], p["wo"])
 
 
-def mla_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
-    """Causal MLA over the prompt x (B,S,D) in the kernel (masked by
-    ``positions`` or by index, as ``attn_prefill``): q and k of nope + rope
-    dims, v zero-padded to that width, whose extra output columns are then
-    zero and cut off; the scale is the kernel's default 1/sqrt(nope +
-    rope), the reference's.  Writes the latents into
-    ``cache["ckv"|"k_rope"][:, :S]``."""
-    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, x, _prompt_positions(x, positions))
-    s = x.shape[1]
-    cache["ckv"][:, :s] = ckv
-    cache["k_rope"][:, :s] = k_rope
+def mla_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict, t0: int = 0):
+    """Causal MLA over the prompt's tokens t0 .. t0+S-1, x (B,S,D), in the
+    kernel (masked by ``positions`` or by index, as ``attn_prefill``): q
+    and k of nope + rope dims, v zero-padded to that width, whose extra
+    output columns are then zero and cut off; the scale is the kernel's
+    default 1/sqrt(nope + rope), the reference's.  Writes the latents into
+    ``cache["ckv"|"k_rope"][:, t0:t0+S]``; a window after the first takes
+    the k and v of the tokens before it from the cache's latents."""
+    q, k, v, ckv, k_rope = _mla_qkv(cfg, p, x, _prompt_positions(x, positions, t0))
+    t1 = t0 + x.shape[1]
+    cache["ckv"][:, t0:t1] = ckv
+    cache["k_rope"][:, t0:t1] = k_rope
+    if t0:
+        k, v = _mla_kv(p, cache["ckv"][:, :t1], cache["k_rope"][:, :t1])
     vd = v.shape[-1]
-    o = _causal_flash(q[:, :, :, None, :], k, torch.nn.functional.pad(v, (0, q.shape[-1] - vd)), positions)
+    o = _causal_flash(q[:, :, :, None, :], k, torch.nn.functional.pad(v, (0, q.shape[-1] - vd)),
+                      *_window_positions(positions, t0, t1))
     return _out(o[..., :vd], p["wo"])
 
 

@@ -1,7 +1,7 @@
 """Model: the end-to-end LM API that the trainer and the server call.
 
 - ``train_loss(params, batch)``              → (loss, metrics), differentiable
-- ``prefill(params, batch, seq_cap)``        → (last-position logits, cache)
+- ``prefill(params, batch, seq_cap, window)`` → (last-position logits, cache)
 - ``decode_step(params, cache, tokens, pos)`` → (logits, cache updated in place)
 - ``cache_spec(batch, seq_cap)`` → the cache's shapes and dtypes;
   ``new_cache(batch, seq_cap, device)`` allocates it.
@@ -40,6 +40,48 @@ from .layers import (
 from .params import ParamDef, abstract_params, init_params, param_count
 
 MTP_WEIGHT = 0.3
+# A prompt longer than this many tokens is prefilled in token windows (``prefill_windows``)
+PREFILL_WINDOW = 32_768
+
+
+def prefill_windows(cfg: ModelConfig, s: int, window: int | None = None) -> list[tuple[int, int]]:
+    """The token windows [t0, t1) a prefill of ``s`` tokens runs in: the
+    whole prompt where it is at most ``window`` (None: ``PREFILL_WINDOW``);
+    else windows of
+    ``window`` tokens, the last one shorter.  With SSD layers every
+    boundary sits at a multiple of the config's scan chunk (``window``
+    must be one), and the prompt's last ``s mod chunk`` tokens take a
+    window of their own, so each window but that one scans in the chunk
+    itself (``ssm.scan_chunk``)."""
+    window = PREFILL_WINDOW if window is None else window
+    if window <= 0:
+        raise ValueError(f"window must be positive; got {window}")
+    if s <= window:
+        return [(0, s)]
+    unit = cfg.ssd.chunk if any(kind == "ssd" for kind, _ in cfg.layer_plan()) else 1
+    if window % unit:
+        raise ValueError(f"{cfg.name}: window {window} is not a multiple of the scan chunk {unit}")
+    body = s - s % unit
+    windows = [(t0, min(t0 + window, body)) for t0 in range(0, body, window)]
+    return windows + ([(body, s)] if body < s else [])
+
+
+def _check_window_positions(positions: torch.Tensor, windows: list) -> None:
+    """A window's queries attend to the keys up to its own last token, so
+    in token windows a prompt's positions must let no query see a later
+    window's key: at each boundary every position before it is below every
+    position after it, in each row.  Positions that restart, repeat or run
+    backwards across a boundary raise (the reference's mask by position
+    would let an earlier query see a later key); within a window they are
+    masked as the reference masks them."""
+    pos = positions.cpu()
+    before = torch.cummax(pos, dim=1).values
+    after = torch.cummin(pos.flip(1), dim=1).values.flip(1)
+    for _, t1 in windows[:-1]:
+        if (before[:, t1 - 1] >= after[:, t1]).any():
+            raise ValueError(f"positions let a query before token {t1} see a key after it: a prefill in token "
+                             f"windows needs them to increase across windows (prefill this prompt with "
+                             f"window >= its length)")
 
 
 class Model:
@@ -244,7 +286,9 @@ class Model:
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
-    def prefill(self, params: dict, batch: dict, seq_cap: int | None = None) -> tuple[torch.Tensor, list]:
+    def prefill(
+        self, params: dict, batch: dict, seq_cap: int | None = None, window: int | None = None
+    ) -> tuple[torch.Tensor, list]:
         """batch["tokens"] (B, S) → (logits (B, padded_vocab), cache);
         (B, S, n_codebooks) → logits (B, n_codebooks, padded_vocab) for a
         multi-codebook config.  A vision-prefix config also takes
@@ -260,18 +304,33 @@ class Model:
 
         An attention cache has capacity ``seq_cap`` (default S) and holds the
         prompt's k/v (MLA: its latents) in slots 0..S-1; decode steps write
-        the slots after them.  An SSD cache holds the state after the prompt."""
+        the slots after them.  An SSD cache holds the state after the prompt.
+
+        A prompt of more than ``window`` tokens (default ``PREFILL_WINDOW``)
+        runs in token windows (``prefill_windows``), layer by layer: every
+        per-token op (norms, projections, RoPE, the FFN and the MoE's
+        experts, the SSD block's in-projection, conv, gate and out-
+        projection) takes one window at a time, attention a window's queries
+        against the cache's slots up to its last, the SSD scan from the
+        state the window before left (``h0``); the residual stream, the
+        cache and the MoE's routing over the whole prompt stay whole.  A
+        prompt of up to one window runs as one.  In windows, ``positions``
+        must increase across each window boundary (within a window they may
+        restart, repeat or run backwards); others raise ``ValueError``."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
+        windows = prefill_windows(cfg, s, window)
         positions = batch.get("positions")  # None: arange(S) in every row, masked by index
         if positions is not None:
             positions = torch.as_tensor(positions, device=x.device)
             if tuple(positions.shape) != (b, s):
                 raise ValueError(f"positions must be (B, S) = {(b, s)}; got {tuple(positions.shape)}")
+            if len(windows) > 1:
+                _check_window_positions(positions, windows)
         caches = self.new_cache(b, s if seq_cap is None else seq_cap, x.device)
         for seg_params, seg_cache, segment in zip(params["segments"], caches, cfg.segments()):
-            x = tf.segment_prefill(cfg, segment, seg_params, seg_cache, x, positions)
+            x = tf.segment_prefill(cfg, segment, seg_params, seg_cache, x, positions, windows)
         h = apply_norm(cfg, params["final_norm"], x[:, -1:, :])
         logits = apply_head(cfg, params["head"], params["embed"], h)[:, 0]
         return self._shape_logits(logits), caches

@@ -149,11 +149,13 @@ def _split_zxbcdt(cfg: ModelConfig, zxbcdt):
     return z, xBC, dt_raw
 
 
-def _causal_conv(xBC, w, b):
+def _causal_conv(xBC, w, b, ctx=None):
     """Depthwise causal conv over time.  xBC (B,L,C), w (K,C): the K-tap
-    FIR summed tap by tap in xBC's dtype, as the reference does."""
+    FIR summed tap by tap in xBC's dtype, as the reference does.  The K-1
+    inputs before the first are zeros, or ``ctx`` (B,K-1,C): those of a
+    window before this one."""
     k, l = w.shape[0], xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, k - 1, 0))
+    pad = F.pad(xBC, (0, 0, k - 1, 0)) if ctx is None else torch.cat([ctx, xBC], dim=1)
     y = pad[:, 0:l, :] * w[0]
     for i in range(1, k):
         y = y + pad[:, i : i + l, :] * w[i]
@@ -197,14 +199,15 @@ def _gate_norm_out(p: dict, y, xs, z):
     return y @ p["out_proj"].float()
 
 
-def _mixer_inputs(cfg: ModelConfig, p: dict, xBC_raw, dt_raw):
-    """The scan's inputs from the in-projection: conv + silu, split into
-    x (B,L,H,P), B and C (B,L,G,N); dt (B,L,H) f32 and A (H,)."""
+def _mixer_inputs(cfg: ModelConfig, p: dict, xBC_raw, dt_raw, conv_ctx=None):
+    """The scan's inputs from the in-projection: conv (its left context
+    ``conv_ctx``, else zeros) + silu, split into x (B,L,H,P), B and C
+    (B,L,G,N); dt (B,L,H) f32 and A (H,)."""
     s = cfg.ssd
     b, l = xBC_raw.shape[:2]
     di = s.d_inner(cfg.d_model)
     gn = s.n_groups * s.d_state
-    xBC = silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    xBC = silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"], conv_ctx))
     xs = xBC[..., :di].reshape(b, l, s.n_heads(cfg.d_model), s.head_dim).contiguous()
     Bm = xBC[..., di : di + gn].reshape(b, l, s.n_groups, s.d_state).contiguous()
     Cm = xBC[..., di + gn :].reshape(b, l, s.n_groups, s.d_state).contiguous()
@@ -223,14 +226,23 @@ def ssd_block_train(cfg: ModelConfig, p: dict, x, positions=None, segment_ids=No
     return _gate_norm_out(p, y, xs, z)
 
 
-def ssd_block_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict):
-    """The block over the prompt x (B,L,D); writes the final state and the
-    last conv window into ``cache["ssm"]`` and ``cache["conv"]``."""
+def ssd_block_prefill(cfg: ModelConfig, p: dict, x, positions, cache: dict, t0: int = 0):
+    """The block over the prompt's tokens t0 .. t0+L-1, x (B,L,D); writes the
+    state after them and the last conv window into ``cache["ssm"]`` and
+    ``cache["conv"]``.  With ``t0`` > 0 (a window of a prefill in token
+    windows) it continues from the cache: the conv window is its left
+    context and the state the scan's ``h0``."""
     l = x.shape[1]
     z, xBC_raw, dt_raw = _split_zxbcdt(cfg, x @ p["in_proj"])
-    cache["conv"].copy_(_last_conv_window(xBC_raw, cfg.ssd.d_conv))  # for decode continuation
-    xs, dtv, A, Bm, Cm = _mixer_inputs(cfg, p, xBC_raw, dt_raw)
-    y, h_fin = ops.ssd_scan(xs, dtv, A, Bm, Cm, chunk=scan_chunk(cfg, l))
+    ctx = h0 = None
+    if t0:
+        ctx, h0 = cache["conv"].clone(), cache["ssm"]
+        tail = torch.cat([ctx, xBC_raw[:, -(cfg.ssd.d_conv - 1):]], dim=1)
+        cache["conv"].copy_(_last_conv_window(tail, cfg.ssd.d_conv))
+    else:
+        cache["conv"].copy_(_last_conv_window(xBC_raw, cfg.ssd.d_conv))  # for decode continuation
+    xs, dtv, A, Bm, Cm = _mixer_inputs(cfg, p, xBC_raw, dt_raw, ctx)
+    y, h_fin = ops.ssd_scan(xs, dtv, A, Bm, Cm, chunk=scan_chunk(cfg, l), h0=h0)
     cache["ssm"].copy_(h_fin)
     return _gate_norm_out(p, y, xs, z)
 

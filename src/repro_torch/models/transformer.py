@@ -65,10 +65,28 @@ def block_apply_train(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, pos
     return _ffn_residual(cfg, is_moe, p, x)
 
 
-def block_apply_prefill(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, positions, cache: dict):
-    h = apply_norm(cfg, p["norm1"], x)
-    x = x + MIXER_PREFILL[kind](cfg, p["mixer"], h, positions, cache).to(x.dtype)
-    return _ffn_residual(cfg, is_moe, p, x)[0]
+def block_apply_prefill(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, positions, cache: dict,
+                        windows: list | None = None):
+    """The layer over the prompt x (B,S,D), window by window over
+    ``windows`` ([t0, t1) covering 0..S; None: the whole prompt as one),
+    each per-token op adding into x in place: the mixer (each window
+    continues from the cache the ones before it wrote), then the FFN.  A
+    MoE FFN over more than one window routes over the whole prompt
+    (``moe.apply_moe_windows``)."""
+    windows = windows or [(0, x.shape[1])]
+    for t0, t1 in windows:
+        h = apply_norm(cfg, p["norm1"], x[:, t0:t1])
+        x[:, t0:t1].add_(MIXER_PREFILL[kind](cfg, p["mixer"], h, positions, cache, t0).to(x.dtype))
+    if "ffn" not in p:
+        return x
+    if is_moe and len(windows) > 1:
+        moe.apply_moe_windows(cfg, p["ffn"], lambda t: apply_norm(cfg, p["norm2"], t), x, windows)
+        return x
+    for t0, t1 in windows:
+        h = apply_norm(cfg, p["norm2"], x[:, t0:t1])
+        y = moe.apply_moe(cfg, p["ffn"], h)[0] if is_moe else apply_ffn(cfg, p["ffn"], h)
+        x[:, t0:t1].add_(y.to(x.dtype))
+    return x
 
 
 def block_apply_decode(cfg: ModelConfig, kind: str, is_moe: bool, p: dict, x, cache: dict, pos: int):
@@ -139,14 +157,16 @@ def segment_train(cfg: ModelConfig, segment, seg_params: dict, x, positions, seg
     return x, aux
 
 
-def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, positions):
-    """``segment`` is one ``(super_block_plan, n_repeat)`` of ``cfg.segments()``."""
+def segment_prefill(cfg: ModelConfig, segment, seg_params: dict, seg_cache: dict, x, positions,
+                    windows: list | None = None):
+    """``segment`` is one ``(super_block_plan, n_repeat)`` of ``cfg.segments()``;
+    layer by layer, each over ``windows`` (``block_apply_prefill``)."""
     plan, n_repeat = segment
     for layer in range(n_repeat):
         for i, (kind, is_moe) in enumerate(plan):
             x = block_apply_prefill(
                 cfg, kind, is_moe, _layer(seg_params["blocks"][i], layer), x, positions,
-                _layer(seg_cache["blocks"][i], layer),
+                _layer(seg_cache["blocks"][i], layer), windows,
             )
     return x
 

@@ -15,7 +15,7 @@ So a check runs the run held as right first, recording each MoE layer's
 router probabilities and expert choices in call order (``RouteRecorder``),
 then the other run replaying those choices (``RouteRecorder(replay=...)``):
 each layer still computes its own probabilities, and its gates are its own
-probabilities at the replayed experts, renormalised as ``moe.route`` does;
+probabilities at the replayed experts, renormalised as ``moe.route_logits`` does;
 only the discrete choice is taken over.  Every output is then held to its
 bar, and ``compare`` lists the (token, layer) pairs whose own choice
 differed, with the first run's probability gap, for the check to bound.
@@ -33,8 +33,10 @@ from repro_torch.models import moe
 
 
 class RouteRecorder:
-    """``with RouteRecorder() as rec:`` records, for each ``moe.route`` call
-    the port makes, its (B, S, E) f32 probabilities into ``rec.probs`` and
+    """``with RouteRecorder() as rec:`` records, for each ``moe.route_logits``
+    call the port makes (one a MoE layer's pass: ``moe.route`` calls it, and
+    so does a prefill in token windows on the whole prompt's logits), its
+    (B, S, E) f32 probabilities into ``rec.probs`` and
     its own (B, S, k) experts into ``rec.idx``.  With ``replay`` (another
     run's ``idx``, one array a call in the same order) each call takes
     those experts instead of its own top-k.  Reading the records copies to
@@ -47,10 +49,10 @@ class RouteRecorder:
         self._real = None
 
     def __enter__(self) -> "RouteRecorder":
-        real = self._real = moe.route
+        real = self._real = moe.route_logits
 
-        def route(cfg, p, x):
-            probs, gate, idx = real(cfg, p, x)
+        def route_logits(cfg, logits):
+            probs, gate, idx = real(cfg, logits)
             self.probs.append(probs.detach().float().cpu().numpy())
             self.idx.append(idx.detach().cpu().numpy())
             if self.replay is not None:
@@ -59,11 +61,11 @@ class RouteRecorder:
                 gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
             return probs, gate, idx
 
-        moe.route = route
+        moe.route_logits = route_logits
         return self
 
     def __exit__(self, *exc) -> None:
-        moe.route = self._real
+        moe.route_logits = self._real
 
 
 def kept_experts(probs: np.ndarray, k: int, cap: int) -> np.ndarray:
